@@ -5,16 +5,31 @@ NVIDIA GPU.
 
 1. Finds the card (prints ``nvidia-smi`` name and power limit); exits
    non-zero when ``torch.cuda.is_available()`` is false.
-2. Builds every CUDA kernel of the batched BM25 path from ``csrc/``.
-3. Holds each kernel against its plain PyTorch version on the card, on
-   seeded strips at the widths the path produces: scores and ids must be
-   bit-identical on finite entries, match counts equal. Prints both times.
-4. Drives the port's main path: ``bench.py``'s 100k-doc Zipf corpus (one
-   commit), ``IndexReader(index, device="cuda").search_batch_many`` over
-   three 1024-query batches with ``output="arrays"``, and one
-   ``search_batch`` in pairs form; checks both against ``bench.py``'s f64
-   oracle under ``SEARCHLITE_PRECISION=f32_strict`` and checks that the
-   path launched the strip kernel and never ran a plain version.
+2. Builds every CUDA kernel of the batched BM25 path from ``csrc/``, one
+   nvcc per source, all started together.
+3. Holds each kernel against its plain PyTorch version on the card at the
+   shapes the path gives it, and prints both times: the strip kernel
+   bit-identical on finite entries (match counts equal) at the widths the
+   strips produce; the fused score + mask + top-k kernel within rtol 1e-6
+   / atol 1e-4 per score, the same finite count and the same top-k set
+   except near-ties, at the dense scorers' shapes (filtered, k = 2,000)
+   and one of the Pallas kernel's own.
+4. Drives the port's main paths on ``bench.py``'s 100k-doc Zipf corpus
+   (one commit, plus a numeric fast field ``bucket = i % 16``) through
+   ``IndexReader(index, device="cuda")``, each with the launch counts set
+   to 0 just before it and read just after:
+   a. the oversized-budget stream: ``search_batch_many`` over three
+      1024-query batches (coalesced into one launch set) with
+      ``output="arrays"``, and one ``search_batch`` in pairs form: the
+      strip kernel only, no dense or term-split row;
+   b. the under-budget route: a 256-query ``search_batch`` (strips, term
+      split, dense remainder), the same 256 queries with per-query
+      filters (all dense), and a 32-query batch with ``limit=2000``
+      (dense); prints the rows each route scored.
+   Every result is checked against ``bench.py``'s f64 oracle under
+   ``SEARCHLITE_PRECISION=f32_strict`` (masked by the filter where there is
+   one; result counts too), and every path must launch its kernels and
+   never run a plain version.
 
 Prints one JSON line of per-kernel results before the last line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure exits
@@ -38,7 +53,25 @@ sys.modules["jax"] = None  # the port must run without JAX: fail loudly
 # blocks), then full strips and non-power-of-2 widths
 STREAM_SHAPES = [(1536, 2048), (1536, 4096), (256, 16384), (48, 65536)]
 EXTRA_SHAPES = [(64, 3072), (16, 49152), (4, 131072)]
+# the term-split scorer's strips: (rows, lanes, k = kp). Under the budget
+# a strip holds <= 32 blocks and kp clamps to its width; kp reaches 8,192
+SPLIT_SHAPES = [(16, 4096, 4096), (16, 2048, 2048), (4, 16384, 8192)]
 K = 10
+N1 = 131072  # the 100k-doc corpus' padded doc axis
+# the fused kernel at the dense scorers' shapes on that corpus:
+# (name, Q, dense rows R+1, sparse slots S, N, k, filter rows)
+FUSED_SHAPES = [
+    ("b256 split scorer", 256, 2990, 768, N1, K, 0),
+    ("b256 filtered", 256, 2990, 768, N1, K, 4),
+    ("b32 k=2000", 32, 2990, 768, N1, 2000, 0),
+    ("pallas family", 128, 64, 0, 1024, K, 0),
+]
+RTOL, ATOL = 1e-6, 1e-4  # bench.py's f32_strict gate
+# per-query filters of the filtered batch, over bucket = i % 16
+FILTERS = [None,
+           {"I64Range": {"field": "bucket", "min": 0, "max": 7}},
+           {"I64Range": {"field": "bucket", "min": 3, "max": 3}},
+           {"I64Range": {"field": "bucket", "min": 20, "max": 30}}]
 
 
 def log(*parts) -> None:
@@ -100,9 +133,20 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def time_pair(kernel, plain, iters: int):
+    """(kernel ms, plain ms): each the mean of two timings, in turns
+    plain, kernel, kernel, plain."""
+    p1 = time_ms(plain, iters)
+    k1 = time_ms(kernel, iters)
+    k2 = time_ms(kernel, iters)
+    p2 = time_ms(plain, iters)
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
 def check_strip_kernel(shapes, k: int = K, seed: int = 5):
-    """Kernel vs plain version on the card, per width. Returns a list of
-    per-shape dicts; raises on any disagreement."""
+    """Kernel vs plain version on the card, per (rows, lanes[, k])
+    shape. Returns a list of per-shape dicts; raises on any
+    disagreement."""
     import torch
 
     from searchlite_tpu_torch.ops.strip_topk import (
@@ -111,17 +155,17 @@ def check_strip_kernel(shapes, k: int = K, seed: int = 5):
     )
 
     rng = np.random.default_rng(seed)
-    n1 = 131072  # the 100k-doc corpus' padded doc axis
     log2_run = 2  # 4-term queries: t_pad 4
     rows = []
-    for B, L in shapes:
-        d_np, v_np = make_strips(rng, B, L, n1)
+    for B, L, *kk in shapes:
+        kk = kk[0] if kk else k
+        d_np, v_np = make_strips(rng, B, L, N1)
         d = torch.from_numpy(d_np).cuda()
         v = torch.from_numpy(v_np).cuda()
-        sent = torch.tensor([n1 - 1], dtype=torch.int32, device="cuda")
-        ts, td, cnt = strip_topk(d, v, sent, k=k, log2_run=log2_run,
+        sent = torch.tensor([N1 - 1], dtype=torch.int32, device="cuda")
+        ts, td, cnt = strip_topk(d, v, sent, k=kk, log2_run=log2_run,
                                  with_counts=True)
-        ps, pd, pc = strip_topk_plain(d, v, sent, k=k, log2_run=log2_run)
+        ps, pd, pc = strip_topk_plain(d, v, sent, k=kk, log2_run=log2_run)
         torch.cuda.synchronize()
         ts, td, cnt = ts.cpu().numpy(), td.cpu().numpy(), cnt.cpu().numpy()
         ps, pd, pc = ps.cpu().numpy(), pd.cpu().numpy(), pc.cpu().numpy()
@@ -138,22 +182,119 @@ def check_strip_kernel(shapes, k: int = K, seed: int = 5):
         if not (cnt[0] == 0 and np.isinf(ts[0]).all()):
             raise AssertionError(f"[{B}, {L}]: all-sentinel row matched")
         iters = 20 if B * L <= 8 << 20 else 5
-        t_plain_a = time_ms(lambda: strip_topk_plain(
-            d, v, sent, k=k, log2_run=log2_run), iters)
-        t_kern = (time_ms(lambda: strip_topk(
-            d, v, sent, k=k, log2_run=log2_run), iters)
-            + time_ms(lambda: strip_topk(
-                d, v, sent, k=k, log2_run=log2_run), iters)) / 2
-        t_plain = (t_plain_a + time_ms(lambda: strip_topk_plain(
-            d, v, sent, k=k, log2_run=log2_run), iters)) / 2
-        row = {"rows": B, "lanes": L, "k": k,
+        t_kern, t_plain = time_pair(
+            lambda: strip_topk(d, v, sent, k=kk, log2_run=log2_run),
+            lambda: strip_topk_plain(d, v, sent, k=kk, log2_run=log2_run),
+            iters)
+        row = {"rows": B, "lanes": L, "k": kk,
                "max_abs_err": float(np.abs(ts[fin] - ps[fin]).max())
                if fin.any() else 0.0,
                "finite": int(fin.sum()), "ms": t_kern, "plain_ms": t_plain}
-        log(f"strip_topk [{B}, {L}] k={k}: bit-identical "
+        log(f"strip_topk [{B}, {L}] k={kk}: bit-identical "
             f"({row['finite']} finite entries); kernel {t_kern:.4f} ms, "
             f"plain {t_plain:.4f} ms")
         rows.append(row)
+    return rows
+
+
+def fused_inputs(g, Q, R, S, N, n_filters):
+    """Seeded operands on the card shaped like a batch's: each query has
+    4 dense-row terms and 2 scattered ones (idf-like weights 1-5), M
+    rows hold ~2% nonzero impacts, 5% of docs are deleted; filter row 0
+    matches all and the last matches nothing."""
+    import torch
+
+    def weights(K, per_row):
+        w = torch.zeros((Q, K), device="cuda")
+        if K:
+            cols = torch.randint(0, K, (Q, per_row), generator=g,
+                                 device="cuda")
+            w.scatter_(1, cols, torch.rand((Q, per_row), generator=g,
+                                           device="cuda") * 4 + 1)
+        return w
+
+    def impacts(K):
+        m = torch.rand((K, N), generator=g, device="cuda")
+        keep = torch.rand((K, N), generator=g, device="cuda") < 0.02
+        return torch.where(keep, m, 0.0)
+
+    kw = {}
+    w1, m1 = weights(R, 4), impacts(R)
+    if S:
+        kw["w2"], kw["m2"] = weights(S, 2), impacts(S)
+    deleted = torch.rand((N,), generator=g, device="cuda") < 0.05
+    if n_filters:
+        rows = torch.rand((n_filters, N), generator=g, device="cuda") < 0.5
+        rows[0] = True
+        rows[-1] = False
+        kw["filter_rows"] = rows
+        kw["fidx"] = torch.randint(0, n_filters, (Q,), generator=g,
+                                   device="cuda", dtype=torch.int32)
+    return w1, m1, deleted, kw
+
+
+def same_topk(ref_s, ref_i, got_s, got_i) -> float:
+    """Raises unless the finite entries, scores (RTOL/ATOL) and ids
+    (except near-ties) agree; returns the max abs score error."""
+    fin = np.isfinite(ref_s)
+    if not np.array_equal(np.isfinite(got_s), fin):
+        raise AssertionError("finite entries differ")
+    if not np.allclose(got_s[fin], ref_s[fin], rtol=RTOL, atol=ATOL):
+        raise AssertionError("scores differ past tolerance")
+    tol = ATOL + RTOL * np.abs(np.where(fin, ref_s, 0.0))
+    gap = np.full(ref_s.shape, np.inf)
+    with np.errstate(invalid="ignore"):
+        diff = np.abs(np.diff(ref_s, axis=1))
+    gap[:, 1:] = np.minimum(gap[:, 1:], diff)
+    gap[:, :-1] = np.minimum(gap[:, :-1], diff)
+    clear = fin & (gap > tol)
+    if not np.array_equal(got_i[clear], ref_i[clear]):
+        raise AssertionError("top-k ids differ beyond near-ties")
+    return float(np.abs(got_s[fin] - ref_s[fin]).max()) if fin.any() \
+        else 0.0
+
+
+def check_fused_kernel(seed: int = 17):
+    """The fused kernel vs its plain version at FUSED_SHAPES. Returns a
+    list of per-shape dicts; raises on any disagreement."""
+    import torch
+
+    from searchlite_tpu_torch.ops.fused_topk import (
+        fused_topk,
+        fused_topk_plain,
+    )
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    rows = []
+    for name, Q, R, S, N, k, nf in FUSED_SHAPES:
+        w1, m1, deleted, kw = fused_inputs(g, Q, R, S, N, nf)
+        ts, td = fused_topk(w1, m1, deleted, k=k, **kw)
+        ps, pd = fused_topk_plain(w1, m1, deleted, k=k, **kw)
+        torch.cuda.synchronize()
+        ts, td, ps, pd = (x.cpu().numpy() for x in (ts, td, ps, pd))
+        try:
+            err = same_topk(ps, pd, ts, td)
+        except AssertionError as e:
+            raise AssertionError(f"fused_topk {name}: {e}") from None
+        if nf and not np.isneginf(ts[kw["fidx"].cpu().numpy()
+                                     == nf - 1]).all():
+            raise AssertionError(f"fused_topk {name}: the all-false "
+                                 "filter row matched")
+        iters = 3 if Q * N > 1 << 24 else 20
+        t_kern, t_plain = time_pair(
+            lambda: fused_topk(w1, m1, deleted, k=k, **kw),
+            lambda: fused_topk_plain(w1, m1, deleted, k=k, **kw), iters)
+        row = {"name": name, "shape": [Q, R, S, N], "k": k,
+               "max_abs_err": err, "finite": int(np.isfinite(ts).sum()),
+               "ms": t_kern, "plain_ms": t_plain}
+        log(f"fused_topk {name}: Wd [{Q}, {R}] Md [{R}, {N}]"
+            + (f" + Ws [{Q}, {S}] Ms [{S}, {N}]" if S else "")
+            + (f", {nf} filter rows" if nf else "")
+            + f", k={k}: agrees ({row['finite']} finite, max abs err "
+            f"{err:.3g}); kernel {t_kern:.4f} ms, plain {t_plain:.4f} ms")
+        rows.append(row)
+        del w1, m1, deleted, kw
     return rows
 
 
@@ -167,17 +308,31 @@ def materialize(reader, arrays, n: int):
     return out
 
 
-def run_slice():
-    """The port's main path on the card. Returns (launches, qps, build
-    seconds of the index)."""
-    import torch
+class Counts:
+    """Every kernel wrapper's launch counts, reset and read together."""
 
+    def __init__(self):
+        from searchlite_tpu_torch.ops import fused_topk, strip_topk
+
+        self.counts = {"strip_topk": strip_topk.COUNTS,
+                       "fused_topk": fused_topk.COUNTS}
+
+    def reset(self):
+        for c in self.counts.values():
+            c.reset()
+
+    def read(self):
+        return ({n: c.launches for n, c in self.counts.items()},
+                sum(c.plain for c in self.counts.values()))
+
+
+def build_index():
+    """bench.py's corpus in one commit, plus a numeric fast field
+    ``bucket = i % 16`` for the filtered batch (body text unchanged)."""
     import bench
     from searchlite_tpu.api.types import IndexOptions, StorageType
     from searchlite_tpu.index import Index
     from searchlite_tpu.index.manifest import Schema
-    from searchlite_tpu_torch.api.reader import IndexReader
-    from searchlite_tpu_torch.ops.strip_topk import COUNTS
 
     t0 = time.perf_counter()
     index = Index.create(
@@ -185,35 +340,52 @@ def run_slice():
                      storage=StorageType.IN_MEMORY),
         Schema.from_json({
             "text_fields": [{"name": "body", "analyzer": "default",
-                             "stored": False, "indexed": True}]}))
+                             "stored": False, "indexed": True}],
+            "numeric_fields": [{"name": "bucket", "type": "i64",
+                                "stored": False, "fast": True}]}))
+    docs = bench.build_docs()
+    for i, doc in enumerate(docs):
+        doc["bucket"] = i % 16
     writer = index.writer()
-    writer.add_documents(bench.build_docs())
+    writer.add_documents(docs)
     writer.commit()
-    build_s = time.perf_counter() - t0
-    t1 = time.perf_counter()
-    reader = IndexReader(index, device="cuda")
-    log(f"index: {bench.N_DOCS} docs built in {build_s:.1f} s, reader "
-        f"open + upload {time.perf_counter() - t1:.1f} s, "
-        f"{len(reader.segments)} segment(s), n1={reader.device_segments[0].n1}")
+    log(f"index: {bench.N_DOCS} docs built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return index
+
+
+def run_stream(reader, counts):
+    """Path a: the oversized-budget 3x1024 stream. Returns (launches,
+    qps)."""
+    import torch
+
+    import bench
+
     batches = bench.build_queries()
     stream = batches[1:]
     n_queries = sum(len(b) for b in stream)
     reader.search_batch_many(stream, limit=K, output="arrays")  # warm
+    for key in reader.route_rows:
+        reader.route_rows[key] = 0
 
-    COUNTS.reset()
+    counts.reset()
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     arr_out = reader.search_batch_many(stream, limit=K, output="arrays")
     torch.cuda.synchronize()
     dt = time.perf_counter() - t2
-    launches, plain = COUNTS.launches, COUNTS.plain
+    launches, plain = counts.read()
     qps = n_queries / dt
     log(f"stream: {n_queries} queries in {dt * 1000:.1f} ms = {qps:.1f} "
-        f"QPS; strip kernel launches {launches}, plain calls {plain}")
-    if launches <= 0:
-        raise AssertionError("the main path launched no strip kernel")
+        f"QPS; launches {launches}, plain calls {plain}; rows per route "
+        f"{reader.route_rows}")
+    if launches["strip_topk"] <= 0:
+        raise AssertionError("the stream launched no strip kernel")
     if plain != 0:
-        raise AssertionError("the main path ran the plain strip version")
+        raise AssertionError("the stream ran a plain version")
+    if reader.route_rows["dense"] or reader.route_rows["split"]:
+        raise AssertionError("the b1024 stream took dense or term-split "
+                             "rows")
     if len(arr_out) != len(stream):
         raise AssertionError("one result per batch expected")
     for sc, ids, sg in arr_out:
@@ -223,7 +395,6 @@ def run_slice():
         if np.isnan(sc).any():
             raise AssertionError("NaN scores")
 
-    os.environ["SEARCHLITE_PRECISION"] = "f32_strict"
     first = stream[0]
     if not bench.verify_vs_oracle(reader, first,
                                   materialize(reader, arr_out[0],
@@ -231,15 +402,109 @@ def run_slice():
         raise AssertionError("arrays output disagrees with the oracle")
     log(f"arrays output: verify_vs_oracle true (f32_strict) on all "
         f"{len(first)} queries of the first batch")
-    COUNTS.reset()
+    counts.reset()
     pairs = reader.search_batch(first, limit=K)
-    if COUNTS.launches <= 0 or COUNTS.plain != 0:
+    launches_p, plain_p = counts.read()
+    if launches_p["strip_topk"] <= 0 or plain_p != 0:
         raise AssertionError("search_batch did not run the strip kernel")
     if not bench.verify_vs_oracle(reader, first, pairs):
         raise AssertionError("pairs output disagrees with the oracle")
     log(f"pairs output: verify_vs_oracle true (f32_strict) on all "
         f"{len(first)} queries")
+    launches["strip_topk"] += launches_p["strip_topk"]
     return launches, qps
+
+
+def verify_masked(reader, queries, filters, results, limit):
+    """bench.verify_vs_oracle with each query's filter applied to the
+    oracle, plus the result count: min(limit, matching docs)."""
+    import bench
+    from searchlite_tpu.api.types import Filter
+    from searchlite_tpu.query.filters import compute_filters_mask
+
+    seg = reader.segments[0]
+    masks = {}
+    for raw, filt, got in zip(queries, filters, results):
+        scores = bench._oracle_scores(reader, raw)
+        if filt is not None:
+            key = json.dumps(filt, sort_keys=True)
+            if key not in masks:
+                masks[key] = compute_filters_mask(
+                    seg.fast, [Filter.from_json(filt)])
+            scores = np.where(masks[key], scores, 0.0).astype(np.float32)
+        if len(got) != min(limit, int((scores > 0).sum())):
+            raise AssertionError(f"{raw!r}: {len(got)} results")
+        if filt is None and not bench.verify_vs_oracle(reader, [raw],
+                                                       [got]):
+            raise AssertionError(f"{raw!r} disagrees with the oracle")
+        tol = [ATOL + RTOL * abs(float(scores[int(d)])) for d, _ in got]
+        if any(abs(s - float(scores[int(d)])) > t
+               for (d, s), t in zip(got, tol)):
+            raise AssertionError(f"{raw!r} ({filt}): a score disagrees "
+                                 "with the masked oracle")
+        if got:
+            floor = min(float(scores[int(d)]) for d, _ in got)
+            mask = np.ones(len(scores), dtype=bool)
+            mask[np.asarray([int(d) for d, _ in got])] = False
+            best_out = float(scores[mask].max()) if mask.any() else 0.0
+            if best_out > floor + ATOL + RTOL * abs(best_out):
+                raise AssertionError(f"{raw!r} ({filt}): a better doc "
+                                     "was left out")
+
+
+def run_under_budget(reader, counts):
+    """Path b: the under-budget route. Returns (launches summed over its
+    three batches, per-batch records)."""
+    import torch
+
+    import bench
+
+    queries = bench.build_queries()[1][:256]
+    filters = [FILTERS[i % len(FILTERS)] for i in range(len(queries))]
+    phases = [
+        ("b256", queries, None, K),
+        ("b256 filtered", queries, filters, K),
+        ("b32 k=2000", queries[:32], None, 2000),
+    ]
+    total = {"strip_topk": 0, "fused_topk": 0}
+    records = []
+    for name, qs, fs, limit in phases:
+        reader.search_batch(qs, limit=limit, filters=fs)  # warm
+        for key in reader.route_rows:
+            reader.route_rows[key] = 0
+        fallbacks = reader._split_fallback_rows
+        counts.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pairs = reader.search_batch(qs, limit=limit, filters=fs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches, plain = counts.read()
+        routes = dict(reader.route_rows)
+        log(f"{name}: {len(qs)} queries in {dt * 1000:.1f} ms; launches "
+            f"{launches}, plain calls {plain}; rows per route: light "
+            f"strip {routes['strip']}, term-split {routes['split']}, "
+            f"dense {routes['dense']} (fallback re-scores included), "
+            f"fallback {routes['fallback']}")
+        if plain != 0:
+            raise AssertionError(f"{name} ran a plain version")
+        if launches["fused_topk"] <= 0 and (fs is not None or limit > 1024):
+            raise AssertionError(f"{name} launched no fused kernel")
+        if fs is None and limit <= 1024 and launches["strip_topk"] <= 0:
+            raise AssertionError(f"{name} launched no strip kernel")
+        if reader._split_fallback_rows - fallbacks != routes["fallback"]:
+            raise AssertionError(f"{name}: fallback counts disagree")
+        verify_masked(reader, qs, fs or [None] * len(qs), pairs, limit)
+        log(f"{name}: oracle-verified (f32_strict"
+            + (", filter-masked" if fs else "") + f") on all {len(qs)} "
+            "queries")
+        for key in total:
+            total[key] += launches[key]
+        records.append({"name": name, "ms": dt * 1000, "routes": routes,
+                        "launches": launches})
+    if total["strip_topk"] <= 0 or total["fused_topk"] <= 0:
+        raise AssertionError("the under-budget route missed a kernel")
+    return total, records
 
 
 def main() -> int:
@@ -255,31 +520,64 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from searchlite_tpu_torch.api.reader import IndexReader
     from searchlite_tpu_torch.ops import _kernels
 
     t0 = time.perf_counter()
-    _kernels.load("strip_topk")
-    log(f"built strip_topk in {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {_kernels.BUILD_SECONDS.get('strip_topk', 0.0):.1f} s)")
+    _kernels.build_all(["strip_topk", "fused_topk"])
+    for kname in ("strip_topk", "fused_topk"):
+        _kernels.load(kname)
+    log(f"built strip_topk + fused_topk in {time.perf_counter() - t0:.1f} "
+        f"s (nvcc {_kernels.BUILD_SECONDS.get('strip_topk', 0.0):.1f} s, "
+        f"{_kernels.BUILD_SECONDS.get('fused_topk', 0.0):.1f} s, in "
+        "parallel)")
 
     stream_rows = check_strip_kernel(STREAM_SHAPES)
     check_strip_kernel(EXTRA_SHAPES, seed=6)
     check_strip_kernel([(8, 4096)], k=1024, seed=7)
-    launches, qps = run_slice()
+    check_strip_kernel(SPLIT_SHAPES, seed=8)
+    fused_rows = check_fused_kernel()
+
+    index = build_index()
+    t1 = time.perf_counter()
+    reader = IndexReader(index, device="cuda")
+    log(f"reader open + upload {time.perf_counter() - t1:.1f} s, "
+        f"{len(reader.segments)} segment(s), "
+        f"n1={reader.device_segments[0].n1}")
+    os.environ["SEARCHLITE_PRECISION"] = "f32_strict"  # the oracle's gate
+    counts = Counts()
+    stream_launches, qps = run_stream(reader, counts)
     log(f"stream QPS {qps:.1f} on {card_line()} (information, not a "
         "benchmark)")
+    budget_launches, records = run_under_budget(reader, counts)
+    for rec in records:
+        log(f"under-budget {rec['name']}: {rec['ms']:.2f} ms on "
+            f"{card_line()} (information, not a benchmark)")
     if "jax" in sys.modules and sys.modules["jax"] is not None:
         raise AssertionError("JAX was imported")
+    main_fused = next(r for r in fused_rows if r["name"] == "b256 filtered")
     kernels = [{
         "name": "strip_topk",
         "route": "cuda",
         "source": "searchlite_tpu_torch/csrc/strip_topk.cu",
         "replaces": "searchlite_tpu/ops/pallas_strip.py:157",
-        "launches": launches,
+        "launches": stream_launches["strip_topk"]
+        + budget_launches["strip_topk"],
         "max_abs_err": max(r["max_abs_err"] for r in stream_rows),
         # one coalesced 3,072-query launch set: the four stream tiers
         "ms": sum(r["ms"] for r in stream_rows),
         "plain_ms": sum(r["plain_ms"] for r in stream_rows),
+    }, {
+        "name": "fused_topk",
+        "route": "cuda",
+        "source": "searchlite_tpu_torch/csrc/fused_topk.cu",
+        "replaces": "searchlite_tpu/ops/pallas_topk.py:32",
+        "launches": stream_launches["fused_topk"]
+        + budget_launches["fused_topk"],
+        "max_abs_err": max(r["max_abs_err"] for r in fused_rows),
+        # the filtered b256 batch: every row dense
+        "ms": main_fused["ms"],
+        "plain_ms": main_fused["plain_ms"],
     }]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

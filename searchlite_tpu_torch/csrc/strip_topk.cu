@@ -13,7 +13,11 @@
 //      shifted adds (the run total lands on the run's last lane);
 //   4. keep run ends whose doc is not the sentinel and whose value is > 0,
 //      and count them;
-//   5. top-k by (score desc, doc asc), -inf padded.
+//   5. top-k by (score desc, doc asc), -inf padded: k rounds of a
+//      block-wide reduction for small k; for k >= kSortMinK on a row in
+//      shared memory, a bitonic sort of every lane's 64-bit key (ordered
+//      score bits << 32 | ~doc) and the first k -- the term-split scorer
+//      asks for k = the strip width, where k rounds cost k passes.
 //
 // Layout: one thread block per strip row. A row of L2 <= 16384 lanes lives
 // in dynamic shared memory (12 bytes a lane: doc, lane-then-value, second
@@ -37,6 +41,20 @@ namespace {
 
 constexpr int kMaxThreads = 1024;
 constexpr int kSmemLanes = 16384;
+constexpr int kSortMinK = 64;  // from here a sort beats k reduction rounds
+
+// (score desc, doc asc) as one unsigned key: larger ranks first
+__device__ __forceinline__ unsigned long long score_key(float s, int doc) {
+  const uint32_t u = __float_as_uint(s);
+  const uint32_t o = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return (static_cast<unsigned long long>(o) << 32) |
+         static_cast<unsigned long long>(~static_cast<uint32_t>(doc));
+}
+
+__device__ __forceinline__ float key_score(unsigned long long key) {
+  const uint32_t o = static_cast<uint32_t>(key >> 32);
+  return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
+}
 
 __device__ __forceinline__ bool key_greater(int da, int la, int db, int lb) {
   return da > db || (da == db && la > lb);
@@ -73,7 +91,7 @@ strip_topk_kernel(const int* __restrict__ d_in,
                   int log2_run, float* __restrict__ ts,
                   int* __restrict__ td, int* __restrict__ counts,
                   int* __restrict__ scratch) {
-  extern __shared__ int smem[];
+  extern __shared__ __align__(16) int smem[];
   __shared__ float red_s[kMaxThreads / 32];
   __shared__ int red_d[kMaxThreads / 32];
   __shared__ int red_c[kMaxThreads / 32];
@@ -196,13 +214,61 @@ strip_topk_kernel(const int* __restrict__ d_in,
     counts[row] = total;
   }
 
-  // 5. top-k: k rounds of a block-wide (max score, min doc) reduction over
+  float* ts_row = ts + static_cast<size_t>(row) * k;
+  int* td_row = td + static_cast<size_t>(row) * k;
+
+  // 5a. wide k on a shared-memory row: sort every lane by the key
+  // (score desc, doc asc) and take the first k. Live docs hold one lane
+  // each, so their keys are unique; -inf lanes come out as (-inf, sent).
+  if (in_smem && k >= kSortMinK) {
+    unsigned long long kreg[kSmemLanes / kMaxThreads];
+#pragma unroll
+    for (int j = 0; j < kSmemLanes / kMaxThreads; ++j) {
+      const int i = tid + j * nthreads;
+      if (i < L2) kreg[j] = score_key(vb[i], D[i]);
+    }
+    __syncthreads();  // the keys overwrite D and the value buffers
+    unsigned long long* keys = reinterpret_cast<unsigned long long*>(smem);
+#pragma unroll
+    for (int j = 0; j < kSmemLanes / kMaxThreads; ++j) {
+      const int i = tid + j * nthreads;
+      if (i < L2) keys[i] = kreg[j];
+    }
+    __syncthreads();
+    for (int kk = 2; kk <= L2; kk <<= 1) {
+      for (int j = kk >> 1; j > 0; j >>= 1) {
+        for (int p = tid; p < (L2 >> 1); p += nthreads) {
+          const int i = ((p & ~(j - 1)) << 1) | (p & (j - 1));
+          const bool desc = (i & kk) == 0;
+          const unsigned long long a = keys[i];
+          const unsigned long long b = keys[i + j];
+          if ((a < b) == desc) {
+            keys[i] = b;
+            keys[i + j] = a;
+          }
+        }
+        __syncthreads();
+      }
+    }
+    for (int r = tid; r < k; r += nthreads) {
+      float s = -INFINITY;
+      int dd = sent;
+      if (r < L2) {
+        const unsigned long long key = keys[r];
+        s = key_score(key);
+        if (s != -INFINITY) dd = static_cast<int>(~static_cast<uint32_t>(key));
+      }
+      ts_row[r] = s;
+      td_row[r] = dd;
+    }
+    return;
+  }
+
+  // 5b. top-k: k rounds of a block-wide (max score, min doc) reduction over
   // the lanes ranked after the previous winner (each live doc holds one
   // lane, so (score, doc) pairs are unique)
   float prev_s = INFINITY;
   int prev_d = -1;
-  float* ts_row = ts + static_cast<size_t>(row) * k;
-  int* td_row = td + static_cast<size_t>(row) * k;
   for (int r = 0; r < k; ++r) {
     float bs = -INFINITY;
     int bd = INT32_MAX;

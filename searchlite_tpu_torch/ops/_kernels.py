@@ -71,6 +71,17 @@ def build(name: str) -> str:
     return out
 
 
+def build_all(names) -> None:
+    """Compile several ``csrc/<name>.cu`` at once, one nvcc each, all
+    started together. Raises the first build's error."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        for fut in [pool.submit(build, n) for n in names]:
+            fut.result()
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     lib = _LIBS.get(name)

@@ -108,6 +108,137 @@ def sparse_candidate_scorer_packed(block_docs, block_impacts, tid_tbl,
                           log2_run=log2_run, with_counts=with_counts)
 
 
+def candidate_core_split(block_docs, block_impacts, bstart, bcnt, w, sent,
+                         hvy, hb_tbl, hb_base, hb_log2g, tid_tbl, maximp, *,
+                         k: int, kp: int, t_pad: int, nblk: int,
+                         log2_run: int, h_pad: int, heavy_rows=None):
+    """Term-split candidate scoring (``ops/sparse.py::_candidate_core_
+    split``): the row's light terms ride the candidate strip and the strip
+    core keeps the top-``kp`` tail candidates with the row's match count;
+    each heavy (head) term then adds its impact at every candidate by
+    point lookup in the segment's heavy lookup table (at most two block
+    rows per doc). ``hvy`` [2, B, h_pad] int32 holds the heavy term ids
+    and their f32 weights bit-cast (0 = unused slot).
+
+    Returns (scores [B,k], ids [B,k], sound [B] bool). A row is sound --
+    its result equals the dense scorer's -- when it has no heavy term, or
+    its k-th score beats HUB = sum of w_h * maximp_h and no candidate cut
+    at kp can climb back over it. Unsound rows must be re-scored dense.
+    The certificate arithmetic follows the JAX order step for step, so
+    the flags agree exactly.
+
+    ``heavy_rows`` (int64 row indices, optional) names the rows with a
+    heavy weight; only they run the lookups. The others would add
+    ``0 * c = +0`` per slot, so the result is the same bit for bit."""
+    sentinel_row, sentinel_doc = sent[0], sent[1]
+    d, v = strip_gather(block_docs, block_impacts, bstart, bcnt, w,
+                        sentinel_row, t_pad=t_pad, nblk=nblk)
+    B = d.shape[0]
+    kp = min(kp, nblk * 128)
+    tv, td, n_cand = strip_topk(d, v, sent[1:2], k=kp, log2_run=log2_run,
+                                with_counts=True)
+    del d, v
+    real = tv > float("-inf")
+    hvy_tid = hvy[0].long()
+    hvy_w = hvy[1].contiguous().view(torch.float32)
+    hub = torch.zeros((B,), dtype=torch.float32, device=tv.device)
+    n_tbl = hb_tbl.shape[0]
+    slot_meta = []
+    for h in range(h_pad):
+        tid = hvy_tid[:, h]
+        wh = hvy_w[:, h]
+        tbase = hb_base[tid]
+        lg = hb_log2g[tid]
+        blk0 = tid_tbl[0][tid]
+        nb_t = tid_tbl[1][tid]
+        last = blk0 + torch.clamp(nb_t - 1, min=0)
+        ok_h = (wh > 0.0) & (tbase >= 0) & (nb_t > 0)
+        slot_meta.append((wh, tbase, lg, blk0, last, ok_h))
+        hub = hub + torch.where(ok_h, wh * maximp[tid], 0.0)
+
+    heavy_sum = torch.zeros_like(tv)
+    td_h = td
+    if heavy_rows is not None:
+        td_h = td[heavy_rows]
+        slot_meta = [tuple(x[heavy_rows] for x in meta)
+                     for meta in slot_meta]
+    # the lookups gather [Bh, chunk, 128] block rows: chunk the candidate
+    # axis so temporaries stay bounded at deep kp windows
+    chunk = max(128, min(512, (1 << 26) // max(td_h.shape[0] * 128, 1)))
+    for c0 in range(0, kp, chunk):
+        td_c = td_h[:, c0:c0 + chunk]
+        hs = torch.zeros(td_c.shape, dtype=torch.float32, device=tv.device)
+        for wh, tbase, lg, blk0, last, ok_h in slot_meta:
+            g = td_c >> lg[:, None]  # docs are >= 0: logical == arithmetic
+            ent_idx = torch.clamp(
+                torch.where(ok_h, tbase, 0)[:, None] + g, max=n_tbl - 1)
+            ent = hb_tbl[ent_idx.long()]
+            b1 = torch.minimum(torch.maximum(ent, blk0[:, None]),
+                               last[:, None])
+            b2 = torch.minimum(b1 + 1, last[:, None])
+            b2_ok = ok_h[:, None] & (b2 != b1)
+            b1 = torch.where(ok_h[:, None], b1, sentinel_row).long()
+            b2 = torch.where(b2_ok, b2, sentinel_row).long()
+            c = (torch.where(block_docs[b1] == td_c[..., None],
+                             block_impacts[b1], 0.0).sum(dim=-1)
+                 + torch.where(block_docs[b2] == td_c[..., None],
+                               block_impacts[b2], 0.0).sum(dim=-1))
+            hs = hs + wh[:, None] * c
+        if heavy_rows is None:
+            heavy_sum[:, c0:c0 + chunk] = hs
+        else:
+            heavy_sum[heavy_rows, c0:c0 + chunk] = hs
+    final = torch.where(real, tv + heavy_sum, float("-inf"))
+    # (score desc, doc asc) over the kp window: a stable doc-ascending
+    # sort, then a stable score-descending one
+    _, od = torch.sort(td, dim=1, stable=True)
+    f1 = torch.gather(final, 1, od)
+    d1s = torch.gather(td, 1, od)
+    _, osc = torch.sort(-f1, dim=1, stable=True)
+    fs = torch.gather(f1, 1, osc)[:, :k]
+    ds = torch.gather(d1s, 1, osc)[:, :k]
+    nreal = (fs > float("-inf")).sum(dim=1)
+    theta = torch.where(nreal >= k, fs[:, k - 1], float("-inf"))
+    tail_k = tv[:, kp - 1]
+    excluded = n_cand > kp
+    sound = (hub <= 0.0) | ((theta > hub)
+                            & (~excluded | (tail_k + hub < theta)))
+    return fs, ds, sound
+
+
+def sparse_candidate_scorer_split(block_docs, block_impacts, tid_tbl,
+                                  hb_tbl, hb_base, hb_log2g, maximp, packed,
+                                  ovr, hvy, sent, *, k: int, kp: int,
+                                  t_pad: int, nblk: int, log2_run: int,
+                                  h_pad: int, n_ovr: int = 0,
+                                  heavy_rows=None):
+    """Term-split variant of the packed scorer
+    (``make_sparse_candidate_scorer_split``): the packed light table and
+    override COO as the packed scorer, plus the [2, B, h_pad] heavy
+    table (and optionally the rows that use it, see
+    :func:`candidate_core_split`). Returns (scores [B,k], ids [B,k],
+    sound [B] bool)."""
+    bstart, bcnt, w = decode_packed(tid_tbl, packed, ovr, n_ovr=n_ovr)
+    return candidate_core_split(
+        block_docs, block_impacts, bstart, bcnt, w, sent, hvy, hb_tbl,
+        hb_base, hb_log2g, tid_tbl, maximp, k=k, kp=kp, t_pad=t_pad,
+        nblk=nblk, log2_run=log2_run, h_pad=h_pad, heavy_rows=heavy_rows)
+
+
+def group_gather_sound(group_s, group_i, group_f, posmaps, *, bl: int):
+    """:func:`group_gather` that also scatters each group's per-row
+    soundness flags (``make_group_gather_sound``); plain groups pass
+    all-True flags, and rows no group maps stay True."""
+    s, i = group_gather(group_s, group_i, posmaps, bl=bl)
+    f = torch.ones((bl + 1,), dtype=torch.bool, device=s.device)
+    off = 0
+    for gf in group_f:
+        m = posmaps[off:off + gf.shape[0]].long().clamp(max=bl)
+        f[m] = gf
+        off += gf.shape[0]
+    return s, i, f[:bl]
+
+
 def group_gather(group_s, group_i, posmaps, *, bl: int):
     """Scatter the tier groups' (scores, ids) into light-row order
     (``make_group_gather``): ``posmaps`` concatenates each group's row

@@ -34,12 +34,17 @@ def build_index(seed=21, n_docs=1600, delete_every=11):
                      storage=StorageType.IN_MEMORY),
         Schema.from_json({
             "text_fields": [{"name": "body", "analyzer": "default",
-                             "stored": False, "indexed": True}]}))
+                             "stored": False, "indexed": True}],
+            "keyword_fields": [{"name": "cat", "stored": False,
+                                "indexed": True, "fast": True}],
+            "numeric_fields": [{"name": "rank", "type": "i64",
+                                "stored": False, "fast": True}]}))
     writer = idx.writer()
     for i in range(n_docs):
         n = int(rng.integers(4, 60))
         writer.add_document({"_id": str(i), "body": " ".join(
-            rng.choice(VOCAB, size=n, p=probs))})
+            rng.choice(VOCAB, size=n, p=probs)), "rank": i % 16,
+            "cat": "abc"[i % 3]})
         if i == n_docs * 2 // 3:
             writer.commit()
     writer.commit()
@@ -211,6 +216,9 @@ def test_coalesced_stream_matches_batches(index, monkeypatch):
 
 
 def test_rows_over_the_cap_take_full_strips(index, monkeypatch):
+    """Over the dense-M budget, rows over the strip cap (and unsound
+    term-split rows) are scored on full strips."""
+    monkeypatch.setenv("SEARCHLITE_M_BUDGET_BYTES", "1")
     monkeypatch.setenv("SEARCHLITE_SPARSE_MAX_BLOCKS", "2")
     port = IndexReader(index, device="cpu")
     calls = []
@@ -277,15 +285,198 @@ def test_python_prep_for_queries_native_prep_rejects(index):
     assert_close_arrays(ref, got)
 
 
-def test_unported_options_raise(index):
+def test_unported_options_raise(index, monkeypatch):
+    """wand/bmw, mesh and search() are not ported; over the dense-M
+    budget, filtered and k > 1024 batches need the doc-sharded scan."""
     port = IndexReader(index, device="cpu")
     q = ["w1 w2"]
     for kwargs in ({"execution": "wand"}, {"execution": "bmw"},
-                   {"mesh": object()}, {"limit": 1025},
-                   {"filters": [{"term": {"body": "w1"}}]}):
+                   {"mesh": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             port.search_batch(q, **kwargs)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.search({"query": "w1"})
     assert port.search_batch([], limit=5) == []
     assert port.search_batch(q, filters=[None])[0]
+    monkeypatch.setenv("SEARCHLITE_M_BUDGET_BYTES", "1")
+    for kwargs in ({"limit": 1025},
+                   {"filters": [{"I64Range": {"field": "rank",
+                                              "min": 0, "max": 3}}]}):
+        with pytest.raises(NotImplementedError,
+                           match="_search_batch_sharded"):
+            port.search_batch(q, **kwargs)
+    assert port.search_batch([], limit=5) == []
+
+
+# -- the under-budget route: term split, dense scorers, filters, k > 1024 --
+
+FILTERS = [None, {"I64Range": {"field": "rank", "min": 0, "max": 3}},
+           {"KeywordEq": {"field": "cat", "value": "a"}},
+           {"And": [{"KeywordEq": {"field": "cat", "value": "b"}},
+                    {"I64Range": {"field": "rank", "min": 4, "max": 11}}]},
+           {"I64Range": {"field": "rank", "min": 100, "max": 200}}]
+
+
+def filtered_oracle(reader, raw, filt):
+    """:func:`oracle` restricted to the docs passing ``filt``."""
+    from searchlite_tpu.api.types import Filter
+    from searchlite_tpu.query.filters import compute_filters_mask
+
+    truth = oracle(reader, raw)
+    if filt is None:
+        return truth
+    masks = [compute_filters_mask(seg.fast, [Filter.from_json(filt)])
+             for seg in reader.segments]
+    return {key: s for key, s in truth.items() if masks[key[0]][key[1]]}
+
+
+def check_filtered_vs_oracle(reader, queries, filters, arrays, limit):
+    scores, ids, segs = arrays
+    for qi, (raw, filt) in enumerate(zip(queries, filters)):
+        truth = filtered_oracle(reader, raw, filt)
+        n = int(np.isfinite(scores[qi]).sum())
+        assert n == min(limit, len(truth)), (raw, filt)
+        for j in range(n):
+            want = truth[(int(segs[qi, j]), int(ids[qi, j]))]
+            assert abs(scores[qi, j] - want) <= ATOL + RTOL * abs(want)
+
+
+def split_env(monkeypatch, max_blocks="4"):
+    """Small strip caps, so the 1,600-doc corpus has head terms: rows
+    with them take the term split, rows over the cap go dense."""
+    monkeypatch.setenv("SEARCHLITE_SPARSE_MAX_BLOCKS", max_blocks)
+    monkeypatch.setenv("SEARCHLITE_SPLIT_UB_RATIO", "0")
+
+
+def test_term_split_and_dense_remainder(index, monkeypatch):
+    split_env(monkeypatch)
+    queries = make_queries(11, 64, max_terms=6)
+    port = IndexReader(index, device="cpu")
+    got = port.search_batch_many([queries], limit=10, output="arrays")[0]
+    assert port.route_rows["split"] > 0 and port.route_rows["dense"] > 0
+    assert port.route_rows["strip"] > 0
+    ref = index.reader().search_batch_many([queries], limit=10,
+                                           output="arrays")[0]
+    assert_close_arrays(ref, got)
+    check_vs_oracle(port, queries, got, np.full(len(queries), 10))
+
+
+def test_forced_fallbacks_match_jax_counts(index, monkeypatch):
+    """A limit past a rare light term's df leaves theta at -inf under a
+    head term's HUB: the certificate fails and the row is re-scored in
+    the fallback wave, in both packages alike."""
+    split_env(monkeypatch)
+    queries = ["w199 w0", "w198 w1 w2", "w0 w197", "w150 w3",
+               "w190 w0 w1"] * 3 + make_queries(12, 20)
+    port = IndexReader(index, device="cpu")
+    jax_reader = index.reader()
+    got = port.search_batch_many([queries], limit=40, output="arrays")[0]
+    ref = jax_reader.search_batch_many([queries], limit=40,
+                                       output="arrays")[0]
+    fallbacks = getattr(jax_reader, "_split_fallback_rows", 0)
+    assert fallbacks > 0
+    assert port._split_fallback_rows == fallbacks
+    assert port.route_rows["fallback"] == fallbacks
+    assert_close_arrays(ref, got)
+    check_vs_oracle(port, queries, got, np.full(len(queries), 40))
+
+
+@pytest.mark.parametrize("limit", [10, 70])
+def test_filtered_batches(index, limit):
+    rng = np.random.default_rng(limit)
+    queries = make_queries(13 + limit, 40)
+    filters = [FILTERS[int(i)] for i in rng.integers(0, len(FILTERS),
+                                                     len(queries))]
+    filters[0] = FILTERS[-1]  # matches nothing
+    port = IndexReader(index, device="cpu")
+    got = port.search_batch_many([queries], limit=limit, filters=[filters],
+                                 output="arrays")[0]
+    # filtered rows go dense, in each of the two segments
+    assert port.route_rows["dense"] == 2 * len(queries)
+    assert np.isneginf(got[0][0]).all()
+    ref = index.reader().search_batch_many(
+        [queries], limit=limit, filters=[filters], output="arrays")[0]
+    assert_close_arrays(ref, got)
+    check_filtered_vs_oracle(port, queries, filters, got, limit)
+    pairs = port.search_batch(queries, limit=limit, filters=filters)
+    assert_close_arrays(ref, pairs_to_arrays(port, pairs, limit))
+
+
+def test_k_over_1024_goes_dense(index):
+    queries = make_queries(14, 12)
+    port = IndexReader(index, device="cpu")
+    got = port.search_batch_many([queries], limit=1100, output="arrays")[0]
+    # k clamps to each segment's n1: a segment of n1 <= 1024 keeps strips
+    wide = sum(d.n1 > 1024 for d in port.device_segments)
+    assert wide and port.route_rows["dense"] == 12 * wide
+    assert port.route_rows["strip"] == 12 * (2 - wide)
+    ref = index.reader().search_batch_many([queries], limit=1100,
+                                           output="arrays")[0]
+    assert got[0].shape == (12, 1100)
+    assert_close_arrays(ref, got)
+    check_vs_oracle(port, queries, got, np.full(len(queries), 1100))
+
+
+@pytest.mark.parametrize("env,scorer", [
+    ("SEARCHLITE_SPARSE_MAX_BLOCKS", "split_impact_scorer"),
+    ("SEARCHLITE_DENSE_M_BYTES", "impact_scorer")])
+def test_all_dense_routes(index, monkeypatch, env, scorer):
+    """SEARCHLITE_SPARSE_MAX_BLOCKS=0 sends every row dense (the split
+    scorer: the head terms have resident rows); with
+    SEARCHLITE_DENSE_M_BYTES=0 too there are no dense rows and the plain
+    block scorer runs."""
+    import searchlite_tpu_torch.api.reader as port_reader
+
+    monkeypatch.setenv("SEARCHLITE_SPARSE_MAX_BLOCKS", "0")
+    monkeypatch.setenv(env, "0")
+    calls = []
+    real = getattr(port_reader, scorer)
+
+    def spy(*args, **kwargs):
+        calls.append(kwargs["k"])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(port_reader, scorer, spy)
+    queries = make_queries(15, 30)
+    got = IndexReader(index, device="cpu").search_batch_many(
+        [queries], limit=10, output="arrays")[0]
+    assert len(calls) == 2  # one launch per segment
+    ref = index.reader().search_batch_many([queries], limit=10,
+                                           output="arrays")[0]
+    assert_close_arrays(ref, got)
+    check_vs_oracle(IndexReader(index, device="cpu"), queries, got,
+                    np.full(len(queries), 10))
+
+
+def test_oversized_route_admits_term_split_rows(index, monkeypatch):
+    monkeypatch.setenv("SEARCHLITE_M_BUDGET_BYTES", "1")
+    monkeypatch.setenv("SEARCHLITE_SPARSE_MAX_BLOCKS", "8")
+    monkeypatch.setenv("SEARCHLITE_HEAVY_TERM_BLOCKS", "3")
+    monkeypatch.setenv("SEARCHLITE_SPLIT_UB_RATIO", "0")
+    queries = make_queries(16, 48) + ["w199 w0", "w198 w1 w2"]
+    port = IndexReader(index, device="cpu")
+    got = port.search_batch_many([queries], limit=30, output="arrays")[0]
+    assert port.route_rows["split"] > 0 and port.route_rows["dense"] == 0
+    jax_reader = index.reader()
+    ref = jax_reader.search_batch_many([queries], limit=30,
+                                       output="arrays")[0]
+    assert port._split_fallback_rows == getattr(
+        jax_reader, "_split_fallback_rows", 0)
+    assert_close_arrays(ref, got)
+    check_vs_oracle(port, queries, got, np.full(len(queries), 30))
+
+
+def test_oversized_route_without_light_rows(index, monkeypatch):
+    """Over the budget with a strip cap of 0 no row is light: every row
+    rides full strips (the JAX reader takes its doc-sharded scan here;
+    both are exact)."""
+    monkeypatch.setenv("SEARCHLITE_M_BUDGET_BYTES", "1")
+    monkeypatch.setenv("SEARCHLITE_SPARSE_MAX_BLOCKS", "0")
+    queries = make_queries(17, 24)
+    port = IndexReader(index, device="cpu")
+    got = port.search_batch_many([queries], limit=10, output="arrays")[0]
+    assert port.route_rows["strip"] == 2 * len(queries)
+    ref = index.reader().search_batch_many([queries], limit=10,
+                                           output="arrays")[0]
+    assert_close_arrays(ref, got)
+    check_vs_oracle(port, queries, got, np.full(len(queries), 10))
