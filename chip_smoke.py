@@ -9,9 +9,13 @@ NVIDIA GPU.
    nvcc per source, all started together.
 3. Holds each kernel against its plain PyTorch version on the card at the
    shapes the path gives it, and prints both times: the strip kernel
-   bit-identical on finite entries (match counts equal) at the widths the
-   strips produce; the fused score + mask + top-k kernel within rtol 1e-6
-   / atol 1e-4 per score, the same finite count and the same top-k set
+   (read in place from posting blocks) bit-identical on finite entries,
+   ids and match counts equal, over seeded block tables of a synthetic
+   segment at n1 = 131,072 (Zipf posting lists, 5% of docs deleted) at
+   the widths the strips produce, rows of 8 and 16 term slots, the
+   term-split widths at k = kp, and 4 x 524,288 lanes over a segment at
+   n1 = 2^20; the fused score + mask + top-k kernel within rtol 1e-6 /
+   atol 1e-4 per score, the same finite count and the same top-k set
    except near-ties, at the dense scorers' shapes (filtered, k = 2,000)
    and one of the Pallas kernel's own.
 4. Drives the port's main paths on ``bench.py``'s 100k-doc Zipf corpus
@@ -28,8 +32,8 @@ NVIDIA GPU.
       (dense); prints the rows each route scored.
    Every result is checked against ``bench.py``'s f64 oracle under
    ``SEARCHLITE_PRECISION=f32_strict`` (masked by the filter where there is
-   one; result counts too), and every path must launch its kernels and
-   never run a plain version.
+   one; result counts too), and every path must launch its kernels,
+   never run a plain version and never gather a strip on the card.
 
 Prints one JSON line of per-kernel results before the last line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure exits
@@ -50,14 +54,19 @@ sys.modules["jax"] = None  # the port must run without JAX: fail loudly
 
 # widths [rows, lanes] the headline stream gives the strip kernel: one
 # coalesced 3,072-query launch set at 100k docs (tiers of 16/32/128/512
-# blocks), then full strips and non-power-of-2 widths
+# blocks), then full strips and non-power-of-2 widths; 4 x 524,288 is the
+# width full strips of a 1M-doc corpus reach
 STREAM_SHAPES = [(1536, 2048), (1536, 4096), (256, 16384), (48, 65536)]
 EXTRA_SHAPES = [(64, 3072), (16, 49152), (4, 131072)]
+WIDE_SHAPE = (4, 524288)
 # the term-split scorer's strips: (rows, lanes, k = kp). Under the budget
 # a strip holds <= 32 blocks and kp clamps to its width; kp reaches 8,192
 SPLIT_SHAPES = [(16, 4096, 4096), (16, 2048, 2048), (4, 16384, 8192)]
+# rows of 8 and 16 term slots (log2_run 3 and 4)
+T_PAD_SHAPES = [(64, 8192, 8), (32, 4096, 16)]
 K = 10
 N1 = 131072  # the 100k-doc corpus' padded doc axis
+N1_1M = 1 << 20  # a 1M-doc corpus' padded doc axis
 # the fused kernel at the dense scorers' shapes on that corpus:
 # (name, Q, dense rows R+1, sparse slots S, N, k, filter rows)
 FUSED_SHAPES = [
@@ -90,32 +99,98 @@ def card_line() -> str:
         return f"nvidia-smi unavailable: {e}"
 
 
-def make_strips(rng, B: int, L: int, n1: int, n_terms: int = 4):
-    """Seeded [B, L] strips shaped like gathered posting blocks: per row
-    ``n_terms`` doc-ascending runs of unique docs (docs repeat ACROSS
-    runs, as multi-term matches do), then (sentinel, 0) pads. Row 0 is
-    all sentinel, row 1 holds fewer matches than K, ~5% of values are 0
-    (tombstoned docs)."""
+def make_segment(rng, n1: int, n_terms: int, max_len: int):
+    """A seeded segment's block layout: ``n_terms`` posting lists of Zipf
+    lengths (rank r draws max_len / r docs, duplicates dropped) plus four
+    1-5 doc lists, each doc-ascending, cut into 128-lane block rows with
+    the sentinel ``n1-1`` padding each list's last row; a trailing
+    all-sentinel row. 5% of docs are deleted (impact 0). Returns
+    (block_docs, block_impacts, term_start, term_blocks)."""
     sent = n1 - 1
-    d = np.full((B, L), sent, dtype=np.int32)
-    v = np.zeros((B, L), dtype=np.float32)
-    fill = rng.random(B)
-    fill[0] = 0.0
-    if B > 1:
-        fill[1] = 3.0 / L
-    seg = max(L // n_terms, 1)
-    step = max(1, (n1 - 2) // seg)
-    for t in range(n_terms):
-        gaps = rng.integers(1, step + 1, size=(B, seg))
-        docs = np.minimum(np.cumsum(gaps, axis=1) - 1, n1 - 2)
-        d[:, t * seg:(t + 1) * seg] = docs
-        v[:, t * seg:(t + 1) * seg] = rng.random((B, seg),
-                                                 dtype=np.float32) + 0.1
-    v[rng.random((B, L)) < 0.05] = 0.0
-    live = np.arange(L)[None, :] < (fill * L)[:, None].astype(np.int64)
-    d = np.where(live, d, sent).astype(np.int32)
-    v = np.where(live, v, 0.0).astype(np.float32)
-    return d, v
+    lens = [max(1, max_len // r) for r in range(1, n_terms + 1)]
+    lens += [int(x) for x in rng.integers(1, 6, size=4)]
+    deleted = rng.random(n1) < 0.05
+    docs_all, imps_all, starts, blocks = [], [], [], []
+    row = 0
+    for n in lens:
+        docs = np.unique(rng.integers(0, n1 - 1, size=n)).astype(np.int32)
+        nb = -(-len(docs) // 128)
+        bd = np.full(nb * 128, sent, dtype=np.int32)
+        bi = np.zeros(nb * 128, dtype=np.float32)
+        bd[:len(docs)] = docs
+        bi[:len(docs)] = np.where(
+            deleted[docs], 0.0,
+            rng.random(len(docs), dtype=np.float32) * 2 + 0.1)
+        docs_all.append(bd)
+        imps_all.append(bi)
+        starts.append(row)
+        blocks.append(nb)
+        row += nb
+    docs_all.append(np.full(128, sent, dtype=np.int32))
+    imps_all.append(np.zeros(128, dtype=np.float32))
+    return (np.concatenate(docs_all).reshape(-1, 128),
+            np.concatenate(imps_all).reshape(-1, 128),
+            np.asarray(starts), np.asarray(blocks))
+
+
+def make_rows(rng, seg, B: int, t_pad: int, nblk: int, n_big: int = 1):
+    """Per-row slot tables (bstart, bcnt, w) over distinct terms whose
+    blocks fit the ``nblk``-block strip, shaped like queries: ``n_big``
+    large terms (an eighth to half the width, else the largest that fit)
+    then random ones (mostly rare: Zipf), in random slot order. With 8
+    rows or more, row 0 has no term (all sentinel) and row 1 one 1-5 doc
+    term (fewer matches than k)."""
+    _, _, term_start, term_blocks = seg
+    n_terms = len(term_start)
+    bstart = np.zeros((B, t_pad), dtype=np.int32)
+    bcnt = np.zeros((B, t_pad), dtype=np.int32)
+    w = np.zeros((B, t_pad), dtype=np.float32)
+    big = np.flatnonzero((term_blocks > nblk // 8)
+                         & (term_blocks <= nblk // 2))
+    if not len(big):
+        fit = np.flatnonzero(term_blocks <= nblk // max(n_big, 1))
+        big = fit[np.argsort(-term_blocks[fit])][:8]
+    special = B >= 8  # rows 0 and 1 as above; small shapes skip them
+    for b in range(1 if special else 0, B):
+        if special and b == 1:
+            chosen = [n_terms - 1]
+        else:
+            used = int(rng.integers(max(1, t_pad // 2), t_pad + 1))
+            chosen = []
+            room = nblk
+            for tid in rng.permutation(big):
+                if len(chosen) >= min(n_big, used):
+                    break
+                if term_blocks[tid] <= room:
+                    chosen.append(int(tid))
+                    room -= int(term_blocks[tid])
+            for tid in rng.integers(0, n_terms, size=64):
+                if len(chosen) >= used:
+                    break
+                if int(tid) not in chosen and term_blocks[tid] <= room:
+                    chosen.append(int(tid))
+                    room -= int(term_blocks[tid])
+            chosen = [chosen[i] for i in rng.permutation(len(chosen))]
+        for j, tid in enumerate(chosen):
+            bstart[b, j] = term_start[tid]
+            bcnt[b, j] = term_blocks[tid]
+            w[b, j] = rng.uniform(0.5, 5.0)
+    return bstart, bcnt, w
+
+
+def max_slots_per_doc(seg, bstart, bcnt, n1: int) -> int:
+    """The most slots of one row that hold the same live doc."""
+    docs = seg[0]
+    best = 0
+    for b in range(bstart.shape[0]):
+        parts = [docs[bstart[b, j]:bstart[b, j] + bcnt[b, j]].ravel()
+                 for j in range(bstart.shape[1]) if bcnt[b, j]]
+        if parts:
+            d = np.concatenate(parts)
+            d = d[d != n1 - 1]
+            if len(d):
+                best = max(best, int(np.bincount(d).max()))
+    return best
 
 
 def time_ms(fn, iters: int) -> float:
@@ -143,57 +218,68 @@ def time_pair(kernel, plain, iters: int):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def check_strip_kernel(shapes, k: int = K, seed: int = 5):
-    """Kernel vs plain version on the card, per (rows, lanes[, k])
-    shape. Returns a list of per-shape dicts; raises on any
-    disagreement."""
+def check_strip_kernel(seg, n1: int, shapes, k: int = K, t_pad: int = 4,
+                       seed: int = 5, n_big: int = 1):
+    """The strip kernel vs its plain version on the card, per (rows,
+    lanes[, k]) shape over seeded block tables of ``seg``. Returns a list
+    of per-shape dicts; raises on any disagreement."""
     import torch
 
     from searchlite_tpu_torch.ops.strip_topk import (
-        strip_topk,
-        strip_topk_plain,
+        strip_topk_blocks,
+        strip_topk_blocks_plain,
     )
 
     rng = np.random.default_rng(seed)
-    log2_run = 2  # 4-term queries: t_pad 4
+    log2_run = max((t_pad - 1).bit_length(), 1)
+    block_docs = torch.from_numpy(seg[0]).cuda()
+    block_imps = torch.from_numpy(seg[1]).cuda()
+    sent = torch.tensor([seg[0].shape[0] - 1, n1 - 1], dtype=torch.int32,
+                        device="cuda")
     rows = []
     for B, L, *kk in shapes:
         kk = kk[0] if kk else k
-        d_np, v_np = make_strips(rng, B, L, N1)
-        d = torch.from_numpy(d_np).cuda()
-        v = torch.from_numpy(v_np).cuda()
-        sent = torch.tensor([N1 - 1], dtype=torch.int32, device="cuda")
-        ts, td, cnt = strip_topk(d, v, sent, k=kk, log2_run=log2_run,
-                                 with_counts=True)
-        ps, pd, pc = strip_topk_plain(d, v, sent, k=kk, log2_run=log2_run)
+        nblk = L // 128
+        bstart_np, bcnt_np, w_np = make_rows(rng, seg, B, t_pad, nblk, n_big)
+        multi = max_slots_per_doc(seg, bstart_np, bcnt_np, n1)
+        args = (block_docs, block_imps, torch.from_numpy(bstart_np).cuda(),
+                torch.from_numpy(bcnt_np).cuda(),
+                torch.from_numpy(w_np).cuda(), sent)
+        kw = dict(k=kk, nblk=nblk, log2_run=log2_run)
+        ts, td, cnt = strip_topk_blocks(*args, with_counts=True, **kw)
+        ps, pd, pc = strip_topk_blocks_plain(*args, **kw)
         torch.cuda.synchronize()
         ts, td, cnt = ts.cpu().numpy(), td.cpu().numpy(), cnt.cpu().numpy()
         ps, pd, pc = ps.cpu().numpy(), pd.cpu().numpy(), pc.cpu().numpy()
+        name = f"[{B}, {L}] t_pad={t_pad} k={kk}"
         fin = np.isfinite(ps)
         if not np.array_equal(np.isfinite(ts), fin):
-            raise AssertionError(f"[{B}, {L}]: finite entries differ")
+            raise AssertionError(f"{name}: finite entries differ")
         if not np.array_equal(ts[fin].view(np.int32),
                               ps[fin].view(np.int32)):
-            raise AssertionError(f"[{B}, {L}]: scores not bit-identical")
+            raise AssertionError(f"{name}: scores not bit-identical")
         if not np.array_equal(td[fin], pd[fin]):
-            raise AssertionError(f"[{B}, {L}]: ids differ")
+            raise AssertionError(f"{name}: ids differ")
         if not np.array_equal(cnt, pc):
-            raise AssertionError(f"[{B}, {L}]: match counts differ")
-        if not (cnt[0] == 0 and np.isinf(ts[0]).all()):
-            raise AssertionError(f"[{B}, {L}]: all-sentinel row matched")
+            raise AssertionError(f"{name}: match counts differ")
+        if B >= 8 and not (cnt[0] == 0 and np.isinf(ts[0]).all()):
+            raise AssertionError(f"{name}: all-sentinel row matched")
+        if B >= 8 and not (cnt[1] < kk and np.isinf(ts[1, cnt[1]:]).all()):
+            raise AssertionError(f"{name}: the short row is not short")
         iters = 20 if B * L <= 8 << 20 else 5
         t_kern, t_plain = time_pair(
-            lambda: strip_topk(d, v, sent, k=kk, log2_run=log2_run),
-            lambda: strip_topk_plain(d, v, sent, k=kk, log2_run=log2_run),
-            iters)
-        row = {"rows": B, "lanes": L, "k": kk,
+            lambda: strip_topk_blocks(*args, **kw),
+            lambda: strip_topk_blocks_plain(*args, **kw), iters)
+        row = {"rows": B, "lanes": L, "k": kk, "t_pad": t_pad,
+               "multi": multi,
                "max_abs_err": float(np.abs(ts[fin] - ps[fin]).max())
                if fin.any() else 0.0,
                "finite": int(fin.sum()), "ms": t_kern, "plain_ms": t_plain}
-        log(f"strip_topk [{B}, {L}] k={kk}: bit-identical "
-            f"({row['finite']} finite entries); kernel {t_kern:.4f} ms, "
-            f"plain {t_plain:.4f} ms")
+        log(f"strip_topk {name}: bit-identical ({row['finite']} finite "
+            f"entries, counts equal, a doc in up to {multi} slots); kernel "
+            f"{t_kern:.4f} ms, plain {t_plain:.4f} ms")
         rows.append(row)
+        del args
     return rows
 
 
@@ -316,12 +402,20 @@ class Counts:
 
         self.counts = {"strip_topk": strip_topk.COUNTS,
                        "fused_topk": fused_topk.COUNTS}
+        self.gathers = strip_topk.GATHER_CALLS
 
     def reset(self):
         for c in self.counts.values():
             c.reset()
+        self.gathers.reset()
 
     def read(self):
+        """(launches per kernel, plain-version calls); raises if the strip
+        was gathered on the card (the kernel reads blocks in place)."""
+        if self.gathers.get("cuda"):
+            raise AssertionError(
+                f"strip_gather ran {self.gathers.get('cuda')} time(s) on "
+                "CUDA tensors")
         return ({n: c.launches for n, c in self.counts.items()},
                 sum(c.plain for c in self.counts.values()))
 
@@ -532,10 +626,25 @@ def main() -> int:
         f"{_kernels.BUILD_SECONDS.get('fused_topk', 0.0):.1f} s, in "
         "parallel)")
 
-    stream_rows = check_strip_kernel(STREAM_SHAPES)
-    check_strip_kernel(EXTRA_SHAPES, seed=6)
-    check_strip_kernel([(8, 4096)], k=1024, seed=7)
-    check_strip_kernel(SPLIT_SHAPES, seed=8)
+    t2 = time.perf_counter()
+    rng = np.random.default_rng(3)
+    seg = make_segment(rng, N1, 3000, 2 * N1)
+    seg_1m = make_segment(rng, N1_1M, 200, 2 * N1_1M)
+    log(f"block tables: {seg[0].shape[0]} block rows at n1={N1}, "
+        f"{seg_1m[0].shape[0]} at n1={N1_1M}, in "
+        f"{time.perf_counter() - t2:.1f} s")
+    stream_rows = check_strip_kernel(seg, N1, STREAM_SHAPES)
+    strip_rows = stream_rows + check_strip_kernel(
+        seg, N1, EXTRA_SHAPES, seed=6, n_big=4)
+    strip_rows += check_strip_kernel(seg_1m, N1_1M, [WIDE_SHAPE], seed=7,
+                                     t_pad=8, n_big=8)
+    strip_rows += check_strip_kernel(seg, N1, [(8, 4096)], k=1024, seed=8)
+    strip_rows += check_strip_kernel(seg, N1, SPLIT_SHAPES, seed=9)
+    for (B, L, tp), sd in zip(T_PAD_SHAPES, (10, 11)):
+        strip_rows += check_strip_kernel(seg, N1, [(B, L)], t_pad=tp,
+                                         seed=sd, n_big=tp // 2)
+    if max(r["multi"] for r in strip_rows) < 4:
+        raise AssertionError("no strip row held a doc in 4 slots")
     fused_rows = check_fused_kernel()
 
     index = build_index()

@@ -31,15 +31,12 @@
 // written as 64-bit keys (ordered score bits << 32 | ~doc), so a larger key
 // ranks first and keys are unique.
 //
-// Phase 2 (merge_topk_kernel): one block per query row, a hand-written
-// merge of the row's n_chunks * KC keys: an 8-pass radix select (8-bit
-// digits, per-warp shared histograms) finds the k-th largest key T, the
-// exactly k keys >= T are compacted and bitonic-sorted descending (in
-// shared memory up to kSortSmem keys, wider in a global scratch row with
-// the sub-chunk stages in shared memory), and decoded. A second kernel
-// rather than strip_topk with log2_run=0: strip_topk sorts every candidate
-// lane and then takes k block-wide reduction rounds, which at k = 2,000
-// over 131,072 candidates would dominate the call.
+// Phase 2 (topk_merge.cuh, shared with strip_topk.cu): one block per query
+// row merges the row's n_chunks * KC keys (all sorted when they are few,
+// else an 8-pass radix select for the k-th key and a bitonic sort of the k
+// survivors) and decodes them. A second kernel rather than one block-wide
+// reduction round per result: at k = 2,000 over 131,072 candidates those
+// rounds would dominate the call.
 //
 // What bounds it on the card: phase 1 reads the listed M rows once per
 // query tile (each staged element feeds 64 queries) and runs 2*64*N flops
@@ -50,7 +47,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "topk_merge.cuh"
+
 namespace {
+
+using topk_merge::make_key;
 
 constexpr int BM = 64;    // queries per tile
 constexpr int BN = 128;   // docs per tile: the chunk C
@@ -59,24 +60,6 @@ constexpr int TM = 8;     // queries per thread
 constexpr int TN = 4;     // docs per thread
 constexpr int kThreads = 256;  // (BM / TM) * (BN / TN)
 constexpr int ASTR = BM + 4;   // padded row of the transposed W tile
-
-constexpr int kMergeThreads = 1024;
-constexpr int kMergeWarps = kMergeThreads / 32;
-constexpr int kSortSmem = 16384;  // keys sorted in shared memory (128 KB)
-
-__device__ __forceinline__ uint32_t ordered_bits(float s) {
-  const uint32_t u = __float_as_uint(s);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ float from_ordered(uint32_t o) {
-  return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
-}
-
-__device__ __forceinline__ unsigned long long make_key(float s, int doc) {
-  return (static_cast<unsigned long long>(ordered_bits(s)) << 32) |
-         static_cast<unsigned long long>(~static_cast<uint32_t>(doc));
-}
 
 // One 64-query tile's list of the K rows of W any of its queries weights,
 // ascending: rows_out[qt * K + i], count in counts[qt]. One block a tile.
@@ -304,154 +287,13 @@ fused_score_kernel(const float* __restrict__ w1, const float* __restrict__ m1,
   }
 }
 
-// One compare-exchange stage (merge size kk, distance j) of a DESCENDING
-// bitonic sort over the n keys of D, whose first key is global index base.
-__device__ __forceinline__ void bitonic_stage_desc(unsigned long long* D,
-                                                   int n, int base, int kk,
-                                                   int j) {
-  for (int p = threadIdx.x; p < (n >> 1); p += blockDim.x) {
-    const int i = ((p & ~(j - 1)) << 1) | (p & (j - 1));
-    const int ixj = i + j;
-    const bool desc = ((base + i) & kk) == 0;
-    const unsigned long long a = D[i];
-    const unsigned long long b = D[ixj];
-    if ((a < b) == desc) {
-      D[i] = b;
-      D[ixj] = a;
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kMergeThreads)
-merge_topk_kernel(const unsigned long long* __restrict__ cand, int n, int k,
-                  int k2, int N, float* __restrict__ ts, int* __restrict__ td,
-                  unsigned long long* __restrict__ scratch) {
-  extern __shared__ unsigned long long sbuf[];
-  __shared__ unsigned int hist[kMergeWarps][256];
-  __shared__ unsigned int tot[256];
-  __shared__ unsigned long long s_prefix;
-  __shared__ int s_remaining;
-  __shared__ unsigned int s_count;
-
-  const int row = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-  const int warp = tid >> 5;
-  const unsigned long long* c = cand + static_cast<size_t>(row) * n;
-
-  // 1. radix select, most significant digit first: T = the k-th largest
-  unsigned long long prefix = 0;
-  unsigned long long mask = 0;
-  int remaining = k;
-  for (int d = 7; d >= 0; --d) {
-    const int shift = 8 * d;
-    for (int i = tid; i < kMergeWarps * 256; i += nthreads) {
-      (&hist[0][0])[i] = 0;
-    }
-    __syncthreads();
-    for (int i = tid; i < n; i += nthreads) {
-      const unsigned long long key = c[i];
-      if ((key & mask) == prefix) {
-        atomicAdd(&hist[warp][(key >> shift) & 255], 1u);
-      }
-    }
-    __syncthreads();
-    for (int b = tid; b < 256; b += nthreads) {
-      unsigned int sum = 0;
-      for (int w = 0; w < kMergeWarps; ++w) sum += hist[w][b];
-      tot[b] = sum;
-    }
-    __syncthreads();
-    if (tid == 0) {
-      unsigned int cum = 0;
-      int b = 255;
-      for (; b > 0; --b) {
-        if (cum + tot[b] >= static_cast<unsigned int>(remaining)) break;
-        cum += tot[b];
-      }
-      s_prefix = prefix | (static_cast<unsigned long long>(b) << shift);
-      s_remaining = remaining - static_cast<int>(cum);
-    }
-    __syncthreads();
-    prefix = s_prefix;
-    remaining = s_remaining;
-    mask |= 255ull << shift;
-  }
-  const unsigned long long T = prefix;
-
-  // 2. the exactly k keys >= T (keys are unique), zero-padded to k2
-  const bool in_smem = k2 <= kSortSmem;
-  unsigned long long* buf =
-      in_smem ? sbuf : scratch + static_cast<size_t>(row) * k2;
-  if (tid == 0) s_count = 0;
-  __syncthreads();
-  for (int i = tid; i < n; i += nthreads) {
-    const unsigned long long key = c[i];
-    if (key >= T) buf[atomicAdd(&s_count, 1u)] = key;
-  }
-  for (int i = k + tid; i < k2; i += nthreads) buf[i] = 0ull;
-  __syncthreads();
-
-  // 3. descending bitonic sort of the k2 keys
-  if (in_smem) {
-    for (int kk = 2; kk <= k2; kk <<= 1) {
-      for (int j = kk >> 1; j > 0; j >>= 1) {
-        bitonic_stage_desc(buf, k2, 0, kk, j);
-        __syncthreads();
-      }
-    }
-  } else {
-    const int C = kSortSmem;
-    for (int c0 = 0; c0 < k2; c0 += C) {
-      for (int i = tid; i < C; i += nthreads) sbuf[i] = buf[c0 + i];
-      __syncthreads();
-      for (int kk = 2; kk <= C; kk <<= 1) {
-        for (int j = kk >> 1; j > 0; j >>= 1) {
-          bitonic_stage_desc(sbuf, C, c0, kk, j);
-          __syncthreads();
-        }
-      }
-      for (int i = tid; i < C; i += nthreads) buf[c0 + i] = sbuf[i];
-      __syncthreads();
-    }
-    for (int kk = 2 * C; kk <= k2; kk <<= 1) {
-      for (int j = kk >> 1; j >= C; j >>= 1) {
-        bitonic_stage_desc(buf, k2, 0, kk, j);
-        __syncthreads();
-      }
-      for (int c0 = 0; c0 < k2; c0 += C) {
-        for (int i = tid; i < C; i += nthreads) sbuf[i] = buf[c0 + i];
-        __syncthreads();
-        for (int j = C >> 1; j > 0; j >>= 1) {
-          bitonic_stage_desc(sbuf, C, c0, kk, j);
-          __syncthreads();
-        }
-        for (int i = tid; i < C; i += nthreads) buf[c0 + i] = sbuf[i];
-        __syncthreads();
-      }
-    }
-  }
-
-  // 4. decode: -inf entries carry the dead doc slot N-1
-  float* ts_row = ts + static_cast<size_t>(row) * k;
-  int* td_row = td + static_cast<size_t>(row) * k;
-  for (int r = tid; r < k; r += nthreads) {
-    const unsigned long long key = buf[r];
-    const float s = from_ordered(static_cast<uint32_t>(key >> 32));
-    ts_row[r] = s;
-    td_row[r] = s == -INFINITY
-                    ? N - 1
-                    : static_cast<int>(~static_cast<uint32_t>(key));
-  }
-}
-
 }  // namespace
 
 extern "C" {
 
 // Tile geometry the wrapper sizes its buffers with.
 int fused_topk_chunk() { return BN; }
-int fused_topk_sort_smem_keys() { return kSortSmem; }
+int fused_topk_sort_smem_keys() { return topk_merge::kSortSmem; }
 
 // w1 [Q, K1] f32, m1 [K1, N] f32; w2 [Q, K2], m2 [K2, N] (K2 = 0: absent);
 // deleted [N] uint8; frows [F+1, N] uint8 + fidx [Q] int32, or both null;
@@ -469,7 +311,6 @@ int fused_topk_launch(const void* w1, const void* m1, int K1, const void* w2,
   if (k < 1 || k > N || KC < 1 || KC > BN || k2 < k) {
     return cudaErrorInvalidValue;
   }
-  if (k2 > kSortSmem && sort_scratch == nullptr) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int q_tiles = (Q + BM - 1) / BM;
   const int n_chunks = (N + BN - 1) / BN;
@@ -493,17 +334,10 @@ int fused_topk_launch(const void* w1, const void* m1, int K1, const void* w2,
       static_cast<unsigned long long*>(cand));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int sort_keys = k2 < kSortSmem ? k2 : kSortSmem;
-  const size_t smem = static_cast<size_t>(sort_keys) * sizeof(unsigned long long);
-  err = cudaFuncSetAttribute(merge_topk_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  merge_topk_kernel<<<Q, kMergeThreads, smem, s>>>(
-      static_cast<const unsigned long long*>(cand), n_chunks * KC, k, k2, N,
-      static_cast<float*>(ts), static_cast<int*>(td),
-      static_cast<unsigned long long*>(sort_scratch));
-  return static_cast<int>(cudaGetLastError());
+  return topk_merge::merge_topk_launch(
+      static_cast<const unsigned long long*>(cand), Q, n_chunks * KC, k, k2,
+      N - 1, nullptr, static_cast<float*>(ts), static_cast<int*>(td),
+      static_cast<unsigned long long*>(sort_scratch), nullptr, 0, nullptr, s);
 }
 
 }  // extern "C"

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface. At first use it is
 compiled with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into
 ``build/kernels/`` at the repository root (keyed by a hash of the
-source, so an edited kernel never loads a stale library) and loaded with
+source and the shared ``csrc/*.cuh`` headers, so an edited kernel never
+loads a stale library) and loaded with
 ``ctypes``. A failed build raises: there is no other path to fall back
 to. Nothing here runs at import time.
 """
@@ -49,8 +50,14 @@ def build(name: str) -> str:
     hash exists; returns the library path. Raises RuntimeError with the
     compiler's output when nvcc fails."""
     src = os.path.join(_CSRC, f"{name}.cu")
-    with open(src, "rb") as fh:
-        digest = hashlib.sha1(fh.read()).hexdigest()[:12]
+    h = hashlib.sha1()
+    # the source and every shared header it may include
+    for path in [src] + sorted(os.path.join(_CSRC, f)
+                               for f in os.listdir(_CSRC)
+                               if f.endswith(".cuh")):
+        with open(path, "rb") as fh:
+            h.update(fh.read())
+    digest = h.hexdigest()[:12]
     out = os.path.join(_BUILD, f"lib{name}-{digest}.so")
     if os.path.exists(out):
         BUILD_SECONDS.setdefault(name, 0.0)

@@ -1,12 +1,15 @@
 """Batched sparse candidate scoring in PyTorch: top-k over each query's
-own gathered posting blocks.
+own posting blocks.
 
 The device half of ``searchlite_tpu/ops/sparse.py``. Per query row, the
-posting blocks of its terms are gathered into a ``[B, nblk*128]``
-candidate strip of (doc, impact x weight); the strip core
-(:mod:`searchlite_tpu_torch.ops.strip_topk`, a hand-written Hopper kernel
-on CUDA tensors) sorts it by doc, sums duplicate-doc runs and takes the
-top-k. The host partitions that build the per-batch tables
+posting blocks of its terms form a ``[B, nblk*128]`` candidate strip of
+(doc, impact x weight); the strip core
+(:func:`searchlite_tpu_torch.ops.strip_topk.strip_topk_blocks`) sums
+duplicate docs and takes the top-k. On CUDA tensors the strip is never
+materialised: the hand-written Hopper kernel reads the posting blocks in
+place and searches the terms' pre-sorted doc runs. On CPU tensors the
+plain version gathers the strip (:func:`strip_gather`) and sorts it. The
+host partitions that build the per-batch tables
 (``partition_sparse_batch_tiered``, ``partition_sparse_batch``,
 ``subset_impact_batch``) are numpy and are imported from the JAX package,
 not copied.
@@ -21,45 +24,23 @@ from __future__ import annotations
 import torch
 
 from searchlite_tpu.ops.sparse import TID_BITS, TID_LIMIT
-from searchlite_tpu_torch.ops.strip_topk import strip_topk
-
-
-def strip_gather(block_docs, block_impacts, bstart, bcnt, w, sentinel_row,
-                 *, t_pad: int, nblk: int):
-    """Gather each row's posting blocks into an UNSORTED candidate strip
-    (``ops/sparse.py::_strip_gather``). ``bstart``/``bcnt`` [B, t_pad]
-    int32 are per-slot block starts and counts (0 for unused slots), ``w``
-    [B, t_pad] f32 the slot weights. Returns (d int32, v f32), both
-    [B, nblk*128]."""
-    B = bstart.shape[0]
-    dev = bstart.device
-    cum = torch.cumsum(bcnt, dim=1, dtype=torch.int32)         # [B, T]
-    total = cum[:, -1]
-    pos = torch.arange(nblk, dtype=torch.int32, device=dev)
-    # owning term slot per gathered block: #{t : cum[t] <= pos}
-    t_of = (pos[None, None, :] >= cum[:, :, None]).sum(
-        dim=1, dtype=torch.int32)                              # [B, nblk]
-    valid = pos[None, :] < total[:, None]
-    t_safe = t_of.clamp(max=t_pad - 1).long()
-    begin = cum - bcnt
-    blk = (torch.gather(bstart, 1, t_safe)
-           + (pos[None, :] - torch.gather(begin, 1, t_safe)))
-    blk_idx = torch.where(valid, blk, sentinel_row).long()
-    w_blk = torch.gather(w, 1, t_safe)
-    d = block_docs[blk_idx].reshape(B, nblk * 128)
-    v = (block_impacts[blk_idx] * w_blk[:, :, None]).reshape(B, nblk * 128)
-    return d, v
+from searchlite_tpu_torch.ops.strip_topk import (  # noqa: F401
+    strip_gather,
+    strip_topk_blocks,
+)
 
 
 def candidate_core(block_docs, block_impacts, bstart, bcnt, w, sent, *,
                    k: int, t_pad: int, nblk: int, log2_run: int,
                    with_counts: bool = False):
-    """Gather + strip core (``ops/sparse.py::_candidate_core``). Returns
-    (scores [B,k] f32, ids [B,k] int32[, counts [B] int32])."""
-    d, v = strip_gather(block_docs, block_impacts, bstart, bcnt, w,
-                        sent[0], t_pad=t_pad, nblk=nblk)
-    return strip_topk(d, v, sent[1:2], k=k, log2_run=log2_run,
-                      with_counts=with_counts)
+    """Strip core over the posting blocks (``ops/sparse.py::
+    _candidate_core``; ``t_pad`` is ``bstart.shape[1]``). On CUDA the
+    strip is never materialised. Returns (scores [B,k] f32, ids [B,k]
+    int32[, counts [B] int32])."""
+    del t_pad
+    return strip_topk_blocks(block_docs, block_impacts, bstart, bcnt, w,
+                             sent, k=k, nblk=nblk, log2_run=log2_run,
+                             with_counts=with_counts)
 
 
 def sparse_candidate_scorer(block_docs, block_impacts, tbl, sent, *,
@@ -130,14 +111,12 @@ def candidate_core_split(block_docs, block_impacts, bstart, bcnt, w, sent,
     ``heavy_rows`` (int64 row indices, optional) names the rows with a
     heavy weight; only they run the lookups. The others would add
     ``0 * c = +0`` per slot, so the result is the same bit for bit."""
-    sentinel_row, sentinel_doc = sent[0], sent[1]
-    d, v = strip_gather(block_docs, block_impacts, bstart, bcnt, w,
-                        sentinel_row, t_pad=t_pad, nblk=nblk)
-    B = d.shape[0]
+    sentinel_row = sent[0]
+    B = bstart.shape[0]
     kp = min(kp, nblk * 128)
-    tv, td, n_cand = strip_topk(d, v, sent[1:2], k=kp, log2_run=log2_run,
-                                with_counts=True)
-    del d, v
+    tv, td, n_cand = candidate_core(
+        block_docs, block_impacts, bstart, bcnt, w, sent, k=kp, t_pad=t_pad,
+        nblk=nblk, log2_run=log2_run, with_counts=True)
     real = tv > float("-inf")
     hvy_tid = hvy[0].long()
     hvy_w = hvy[1].contiguous().view(torch.float32)

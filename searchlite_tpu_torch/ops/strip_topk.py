@@ -1,19 +1,26 @@
-"""Strip core: sort + duplicate-doc combine + top-k over candidate strips.
+"""Strip core: duplicate-doc combine + top-k over candidate strips.
 
-The port of ``searchlite_tpu/ops/pallas_strip.py::_strip_kernel`` (and of
-the JAX default sort core in ``ops/sparse.py::_candidate_core``). Per row
-of a ``[B, L]`` strip of (doc int32, weighted impact f32): sort by doc,
-sum equal-doc runs of at most ``2**log2_run`` lanes with shifted adds
-(the total lands on the run's last lane), keep run ends whose doc is not
-the sentinel ``n1-1`` and whose value is > 0, count them, and return the
-top-k by (score desc, doc asc) with -inf padding.
+The port of ``searchlite_tpu/ops/pallas_strip.py::_strip_kernel`` together
+with the gather that feeds it (``ops/sparse.py::_strip_gather``) and the
+JAX default sort core of ``_candidate_core``. A row's candidate strip is
+the concatenation of its term slots' posting blocks, each weighted by the
+slot's weight; per row: sort by doc, sum equal-doc runs of at most
+``2**log2_run`` lanes with shifted adds (the total lands on the run's last
+lane), keep run ends whose doc is not the sentinel ``n1-1`` and whose
+value is > 0, count them, and return the top-k by (score desc, doc asc)
+with -inf padding.
 
-:func:`strip_topk` dispatches on the tensors' device: CPU tensors take
-:func:`strip_topk_plain`, CUDA tensors the hand-written Hopper kernel
-(``csrc/strip_topk.cu``). There is no fallback between the two. Both are
-bit-identical on finite entries: the kernel sorts on (doc, original lane),
-which is the stable sort's order, so each run adds the same values in
-the same order.
+:func:`strip_topk_blocks` is the entry and dispatches on the tensors'
+device. CPU tensors take :func:`strip_topk_blocks_plain`: the gather
+(:func:`strip_gather`) materialises the strip and :func:`strip_topk_plain`
+sorts it. CUDA tensors take the hand-written Hopper kernel
+(``csrc/strip_topk.cu``), which never materialises the strip: it reads the
+posting blocks in place and searches the slots' pre-sorted doc runs. There
+is no fallback between the two. They are bit-identical on finite entries:
+the kernel sums each doc's slot values in the plain scan's tree order.
+
+:func:`strip_topk` over an already gathered (d, v) strip is the plain
+version alone, for CPU tensors.
 """
 
 from __future__ import annotations
@@ -38,7 +45,25 @@ class LaunchCounts:
         self.plain = 0
 
 
+class DeviceCalls:
+    """How often a function ran, per device type of its tensors."""
+
+    def __init__(self) -> None:
+        self.calls: dict[str, int] = {}
+
+    def add(self, device: torch.device) -> None:
+        self.calls[device.type] = self.calls.get(device.type, 0) + 1
+
+    def get(self, device_type: str) -> int:
+        return self.calls.get(device_type, 0)
+
+    def reset(self) -> None:
+        self.calls.clear()
+
+
 COUNTS = LaunchCounts()
+# strip_gather's calls: on CUDA only the plain version, never the main path
+GATHER_CALLS = DeviceCalls()
 
 
 def _sent_tensor(sent, device) -> torch.Tensor:
@@ -63,22 +88,22 @@ def _check(d: torch.Tensor, v: torch.Tensor, k: int, log2_run: int):
 
 def strip_topk(d: torch.Tensor, v: torch.Tensor, sent, *, k: int,
                log2_run: int, with_counts: bool = False):
-    """Top-k of each strip row. ``sent`` is the dead doc slot (an int or
-    one int32 on the strip's device). Returns (ts [B,k] f32, td [B,k]
-    int32[, counts [B] int32]); entries past a row's matches are -inf
-    (their ids are unspecified)."""
+    """Top-k of each row of a gathered (d, v) strip, by the plain version.
+    ``sent`` is the dead doc slot (an int or one int32 on the strip's
+    device). Returns (ts [B,k] f32, td [B,k] int32[, counts [B] int32]);
+    entries past a row's matches are -inf (their ids are unspecified).
+    CPU tensors only: on the card the strip is never gathered, and
+    :func:`strip_topk_blocks` reads the posting blocks in place."""
     _check(d, v, k, log2_run)
     sent_t = _sent_tensor(sent, d.device)
     if sent_t.device != d.device:
         raise ValueError("sent must be on the strip's device")
-    if d.device.type == "cpu":
-        COUNTS.plain += 1
-        out = strip_topk_plain(d, v, sent_t, k=k, log2_run=log2_run)
-    elif d.device.type == "cuda":
-        out = _strip_topk_cuda(d, v, sent_t, k=k, log2_run=log2_run)
-    else:
+    if d.device.type != "cpu":
         raise NotImplementedError(
-            f"strip_topk has no path for device {d.device}")
+            f"strip_topk has no path for device {d.device}: gathered strips "
+            "are the CPU plain version; use strip_topk_blocks")
+    COUNTS.plain += 1
+    out = strip_topk_plain(d, v, sent_t, k=k, log2_run=log2_run)
     return out if with_counts else out[:2]
 
 
@@ -115,32 +140,166 @@ def strip_topk_plain(d: torch.Tensor, v: torch.Tensor, sent, *, k: int,
     return ts, td, ok.sum(dim=1, dtype=torch.int32)
 
 
-def _strip_topk_cuda(d, v, sent, *, k: int, log2_run: int):
-    from searchlite_tpu_torch.ops._kernels import load
+def strip_gather(block_docs, block_impacts, bstart, bcnt, w, sentinel_row,
+                 *, t_pad: int, nblk: int):
+    """Gather each row's posting blocks into an UNSORTED candidate strip
+    (``ops/sparse.py::_strip_gather``). ``bstart``/``bcnt`` [B, t_pad]
+    int32 are per-slot block starts and counts (0 for unused slots), ``w``
+    [B, t_pad] f32 the slot weights. Returns (d int32, v f32), both
+    [B, nblk*128]. Part of the plain version only."""
+    GATHER_CALLS.add(bstart.device)
+    B = bstart.shape[0]
+    dev = bstart.device
+    cum = torch.cumsum(bcnt, dim=1, dtype=torch.int32)         # [B, T]
+    total = cum[:, -1]
+    pos = torch.arange(nblk, dtype=torch.int32, device=dev)
+    # owning term slot per gathered block: #{t : cum[t] <= pos}
+    t_of = (pos[None, None, :] >= cum[:, :, None]).sum(
+        dim=1, dtype=torch.int32)                              # [B, nblk]
+    valid = pos[None, :] < total[:, None]
+    t_safe = t_of.clamp(max=t_pad - 1).long()
+    begin = cum - bcnt
+    blk = (torch.gather(bstart, 1, t_safe)
+           + (pos[None, :] - torch.gather(begin, 1, t_safe)))
+    blk_idx = torch.where(valid, blk, sentinel_row).long()
+    w_blk = torch.gather(w, 1, t_safe)
+    d = block_docs[blk_idx].reshape(B, nblk * 128)
+    v = (block_impacts[blk_idx] * w_blk[:, :, None]).reshape(B, nblk * 128)
+    return d, v
 
-    lib = load("strip_topk")
-    fn = lib.strip_topk_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p] * 5)
-    if not (d.is_contiguous() and v.is_contiguous()):
-        raise ValueError("strip_topk needs contiguous d and v")
-    B, L = d.shape
-    L2 = next_pow2(L)
-    ts = torch.empty((B, k), dtype=torch.float32, device=d.device)
-    td = torch.empty((B, k), dtype=torch.int32, device=d.device)
-    counts = torch.empty((B,), dtype=torch.int32, device=d.device)
+
+def _check_blocks(block_docs, block_impacts, bstart, bcnt, w, sent, k: int,
+                  nblk: int, log2_run: int):
+    if block_docs.dim() != 2 or block_docs.shape[1] != 128 \
+            or block_impacts.shape != block_docs.shape:
+        raise ValueError(f"block_docs {tuple(block_docs.shape)} and "
+                         f"block_impacts {tuple(block_impacts.shape)} must "
+                         "be the same [R, 128] shape")
+    if bstart.dim() != 2 or bcnt.shape != bstart.shape \
+            or w.shape != bstart.shape:
+        raise ValueError("bstart, bcnt and w must be the same [B, t_pad] "
+                         "shape")
+    if (block_docs.dtype, block_impacts.dtype, bstart.dtype, bcnt.dtype,
+            w.dtype) != (torch.int32, torch.float32, torch.int32,
+                         torch.int32, torch.float32):
+        raise ValueError("block_docs, bstart, bcnt must be int32 and "
+                         "block_impacts, w float32")
+    if sent.shape != (2,) or sent.dtype != torch.int32:
+        raise ValueError("sent must be int32 [2] (sentinel block row, "
+                         "dead doc slot)")
+    tensors = (block_docs, block_impacts, bstart, bcnt, w, sent)
+    if any(t.device != bstart.device for t in tensors):
+        raise ValueError("every operand must be on one device")
+    if k <= 0 or nblk <= 0 or log2_run < 0 or bstart.shape[1] < 1:
+        raise ValueError("k, nblk and t_pad must be > 0, log2_run >= 0")
+
+
+def strip_topk_blocks(block_docs: torch.Tensor, block_impacts: torch.Tensor,
+                      bstart: torch.Tensor, bcnt: torch.Tensor,
+                      w: torch.Tensor, sent: torch.Tensor, *, k: int,
+                      nblk: int, log2_run: int, with_counts: bool = False):
+    """Top-k of each row's candidate strip, read from the posting blocks:
+    ``block_docs`` [R, 128] int32 and ``block_impacts`` [R, 128] f32 (the
+    segment's, tombstones zeroed); per row ``bstart``/``bcnt`` [B, t_pad]
+    int32 block ranges and ``w`` [B, t_pad] f32 slot weights; ``sent``
+    [2] int32 (sentinel block row, dead doc slot ``n1-1``); ``nblk`` the
+    strip's width in blocks. Returns (ts [B,k] f32, td [B,k] int32[,
+    counts [B] int32]); entries past a row's matches are -inf.
+
+    The CUDA kernel needs each slot's docs ascending, each live doc at
+    most once per slot, and sentinel docs only at the tail of a slot's
+    last block -- what real segments hold by construction."""
+    _check_blocks(block_docs, block_impacts, bstart, bcnt, w, sent, k, nblk,
+                  log2_run)
+    if bstart.device.type == "cpu":
+        COUNTS.plain += 1
+        out = strip_topk_blocks_plain(block_docs, block_impacts, bstart,
+                                      bcnt, w, sent, k=k, nblk=nblk,
+                                      log2_run=log2_run)
+    elif bstart.device.type == "cuda":
+        out = _strip_topk_blocks_cuda(block_docs, block_impacts, bstart,
+                                      bcnt, w, sent, k=k, nblk=nblk,
+                                      log2_run=log2_run)
+    else:
+        raise NotImplementedError(
+            f"strip_topk_blocks has no path for device {bstart.device}")
+    return out if with_counts else out[:2]
+
+
+def strip_topk_blocks_plain(block_docs, block_impacts, bstart, bcnt, w,
+                            sent, *, k: int, nblk: int, log2_run: int):
+    """The plain version: :func:`strip_gather` then
+    :func:`strip_topk_plain`. Returns (ts, td, counts)."""
+    d, v = strip_gather(block_docs, block_impacts, bstart, bcnt, w, sent[0],
+                        t_pad=bstart.shape[1], nblk=nblk)
+    return strip_topk_plain(d, v, sent[1:2], k=k, log2_run=log2_run)
+
+
+_LAUNCH = None  # (launch fn, tile lanes, max slots, sort smem keys)
+
+
+def _launcher():
+    """The kernel's launch function and geometry, read once."""
+    global _LAUNCH
+    if _LAUNCH is None:
+        from searchlite_tpu_torch.ops._kernels import load
+
+        lib = load("strip_topk")
+        fn = lib.strip_topk_blocks_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+                       + [ctypes.c_void_p] * 7)
+        _LAUNCH = (fn, lib.strip_topk_tile_lanes(),
+                   lib.strip_topk_max_slots(),
+                   lib.strip_topk_sort_smem_keys())
+    return _LAUNCH
+
+
+def _strip_topk_blocks_cuda(block_docs, block_impacts, bstart, bcnt, w,
+                            sent, *, k: int, nblk: int, log2_run: int):
+    fn, tile_lanes, max_slots, sort_smem = _launcher()
+    tensors = (block_docs, block_impacts, bstart, bcnt, w, sent)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("strip_topk_blocks needs contiguous operands")
+    if block_docs.data_ptr() % 16 or block_impacts.data_ptr() % 16:
+        raise ValueError("block_docs and block_impacts must be 16-byte "
+                         "aligned")
+    B, t_pad = bstart.shape
+    if t_pad > max_slots or log2_run > 8:
+        raise ValueError(f"t_pad {t_pad} / log2_run {log2_run} past the "
+                         "kernel's slot table")
+    dev = bstart.device
+    kt = min(tile_lanes, max(16, k))
+    tile_blocks = tile_lanes // 128
+    # a slot's blocks split into tiles of tile_blocks: at most this many
+    n_tiles = max((nblk + (tile_blocks - 1) * t_pad) // tile_blocks,
+                  -(-k // kt), 1)
+    k2 = next_pow2(k)
+    # one allocation: the candidate keys, then ts, td, counts and the
+    # per-tile counts as 32-bit words
+    n_cand = B * n_tiles * kt
+    n32 = 2 * B * k + B + B * n_tiles
+    buf = torch.empty((n_cand + (n32 + 1) // 2,), dtype=torch.int64,
+                      device=dev)
+    words = buf[n_cand:].view(torch.int32)
+    ts = words[:B * k].view(torch.float32).view(B, k)
+    td = words[B * k:2 * B * k].view(B, k)
+    counts = words[2 * B * k:2 * B * k + B]
+    if B == 0:
+        return ts, td, counts
+    tile_counts = words[2 * B * k + B:n32]
     scratch = None
-    if L2 > lib.strip_topk_smem_lanes():
-        scratch = torch.empty((B, 3, L2), dtype=torch.int32,
-                              device=d.device)
-    stream = torch.cuda.current_stream(d.device).cuda_stream
-    err = fn(d.data_ptr(), v.data_ptr(), sent.data_ptr(), B, L, L2, k,
-             log2_run, ts.data_ptr(), td.data_ptr(), counts.data_ptr(),
+    if k2 > sort_smem:
+        scratch = torch.empty((B, k2), dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(block_docs.data_ptr(), block_impacts.data_ptr(),
+             bstart.data_ptr(), bcnt.data_ptr(), w.data_ptr(),
+             sent.data_ptr(), B, t_pad, nblk, k, k2, log2_run, kt, n_tiles,
+             buf.data_ptr(), tile_counts.data_ptr(), ts.data_ptr(),
+             td.data_ptr(), counts.data_ptr(),
              None if scratch is None else scratch.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"strip_topk launch failed: cudaError {err} "
-                           f"(B={B}, L={L}, k={k})")
-    if B:
-        COUNTS.launches += 1
+                           f"(B={B}, t_pad={t_pad}, nblk={nblk}, k={k})")
+    COUNTS.launches += 1
     return ts, td, counts

@@ -146,40 +146,72 @@ def test_dispatch_counts_cpu_calls_and_refuses_other_devices():
         strip_topk(d, v[:, :4], 9, k=2, log2_run=1)
 
 
+def strips_to_blocks(d, v, sent):
+    """Block tables holding the same strips: each row's doc-ascending
+    runs become term slots of 128-lane block rows (sentinel-padded), with
+    weight 1 so every value is its impact. Returns (block_docs,
+    block_impacts, bstart, bcnt, w, sent [2], nblk)."""
+    docs_rows, imps_rows, slots = [], [], []
+    for b in range(d.shape[0]):
+        live = np.flatnonzero(d[b] != sent)
+        cuts = np.flatnonzero(np.diff(d[b, live]) <= 0) + 1
+        row = []
+        for run in np.split(live, cuts):
+            if not len(run):
+                continue
+            nb = -(-len(run) // 128)
+            bd = np.full(nb * 128, sent, dtype=np.int32)
+            bi = np.zeros(nb * 128, dtype=np.float32)
+            bd[:len(run)] = d[b, run]
+            bi[:len(run)] = v[b, run]
+            row.append((sum(len(x) for x in docs_rows), nb))
+            docs_rows.append(bd.reshape(nb, 128))
+            imps_rows.append(bi.reshape(nb, 128))
+        slots.append(row)
+    docs_rows.append(np.full((1, 128), sent, dtype=np.int32))
+    imps_rows.append(np.zeros((1, 128), dtype=np.float32))
+    t_pad = max(2, max(len(r) for r in slots))
+    bstart = np.zeros((d.shape[0], t_pad), dtype=np.int32)
+    bcnt = np.zeros_like(bstart)
+    w = np.zeros(bstart.shape, dtype=np.float32)
+    for b, row in enumerate(slots):
+        for s_, (r0, nb) in enumerate(row):
+            bstart[b, s_], bcnt[b, s_], w[b, s_] = r0, nb, 1.0
+    block_docs = np.concatenate(docs_rows)
+    nblk = max(int(bcnt.sum(axis=1).max()), 1)
+    return (block_docs, np.concatenate(imps_rows), bstart, bcnt, w,
+            np.array([block_docs.shape[0] - 1, sent], dtype=np.int32), nblk)
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from searchlite_tpu_torch.ops.strip_topk import strip_topk_blocks
+
     rng = np.random.default_rng(9)
     for B, L, k in [(64, 2048, 10), (16, 12288, 10), (4, 65536, 10),
                     (2, 131072, 10), (4, 4096, 1024)]:
         d, v = build_strips(rng, B, L, 131072)
-        dc, vc = torch.from_numpy(d).cuda(), torch.from_numpy(v).cuda()
-        sent = torch.tensor([131071], dtype=torch.int32, device="cuda")
+        *tables, nblk = strips_to_blocks(d, v, 131071)
         launches = COUNTS.launches
-        ts, td, cnt = strip_topk(dc, vc, sent, k=k, log2_run=2,
-                                 with_counts=True)
+        ts, td, cnt = strip_topk_blocks(
+            *(torch.from_numpy(a).cuda() for a in tables), k=k, nblk=nblk,
+            log2_run=2, with_counts=True)
         assert COUNTS.launches == launches + 1
-        ps, pd, pc = strip_topk_plain(dc, vc, sent, k=k, log2_run=2)
+        ps, pd, pc = strip_topk_plain(torch.from_numpy(d),
+                                      torch.from_numpy(v),
+                                      torch.tensor([131071],
+                                                   dtype=torch.int32),
+                                      k=k, log2_run=2)
         ts, td, ps, pd = (x.cpu().numpy() for x in (ts, td, ps, pd))
         fin = np.isfinite(ps)
         assert np.array_equal(np.isfinite(ts), fin)
         assert np.array_equal(ts[fin].view(np.int32), ps[fin].view(np.int32))
         assert np.array_equal(td[fin], pd[fin])
-        assert np.array_equal(cnt.cpu().numpy(), pc.cpu().numpy())
-    # tiny and empty strips: one lane, a width under k, no rows
-    d = torch.tensor([[4], [2]], dtype=torch.int32, device="cuda")
-    v = torch.tensor([[1.0], [0.5]], device="cuda")
-    ts, td, cnt = strip_topk(d, v, 4, k=3, log2_run=2, with_counts=True)
-    assert ts.cpu().tolist() == [[float("-inf")] * 3,
-                                 [0.5] + [float("-inf")] * 2]
-    assert td[1, 0].item() == 2 and cnt.cpu().tolist() == [0, 1]
+        assert np.array_equal(cnt.cpu().numpy(), pc.numpy())
+    # the gathered (d, v) strip has no kernel: the card reads blocks
     d = torch.tensor([[3, 1, 1, 9, 3]], dtype=torch.int32, device="cuda")
     v = torch.tensor([[0.5, 1.0, 0.25, 2.0, 0.5]], device="cuda")
-    ts, td = strip_topk(d, v, 9, k=8, log2_run=1)
-    assert ts.cpu().tolist() == [[1.25, 1.0] + [float("-inf")] * 6]
-    assert td[0, :2].cpu().tolist() == [1, 3]
-    empty = torch.empty((0, 64), dtype=torch.int32, device="cuda")
-    launches = COUNTS.launches
-    ts, td = strip_topk(empty, empty.float(), 63, k=5, log2_run=1)
-    assert ts.shape == (0, 5) and COUNTS.launches == launches
+    with pytest.raises(NotImplementedError, match="strip_topk_blocks"):
+        strip_topk(d, v, 9, k=8, log2_run=1)
