@@ -8,20 +8,23 @@ NVIDIA GPU.
 2. Builds every CUDA kernel of the batched BM25 path from ``csrc/``, one
    nvcc per source, all started together.
 3. Holds each kernel against its plain PyTorch version on the card at the
-   shapes the path gives it, and prints both times: the strip kernel
-   (read in place from posting blocks) bit-identical on finite entries,
-   ids and match counts equal, over seeded block tables of a synthetic
-   segment at n1 = 131,072 (Zipf posting lists, 5% of docs deleted) at
-   the widths the strips produce, rows of 8 and 16 term slots, the
-   term-split widths at k = kp, and 4 x 524,288 lanes over a segment at
-   n1 = 2^20; the fused score + mask + top-k kernel within rtol 1e-6 /
-   atol 1e-4 per score, the same finite count and the same top-k set
-   except near-ties, at the dense scorers' shapes (filtered, k = 2,000)
-   and one of the Pallas kernel's own.
-4. Drives the port's main paths on ``bench.py``'s 100k-doc Zipf corpus
-   (one commit, plus a numeric fast field ``bucket = i % 16``) through
-   ``IndexReader(index, device="cuda")``, each with the launch counts set
-   to 0 just before it and read just after:
+   shapes the path gives it, and prints both times beside the kernel's
+   bound (the bytes it must move at 3.35 TB/s against its operations at
+   67 TFLOP/s) and, for the fused kernel, one ``torch.matmul`` of the
+   score part: the strip kernel (read in place from posting blocks)
+   bit-identical on finite entries, ids and match counts equal, over
+   seeded block tables of a synthetic segment at n1 = 131,072 (Zipf
+   posting lists, 5% of docs deleted) at the widths the strips produce,
+   rows of 8 and 16 term slots, the term-split widths at k = kp, and
+   4 x 524,288 lanes over a segment at n1 = 2^20; the fused score + mask +
+   top-k kernel within rtol 1e-6 / atol 1e-4 per score, the same finite
+   count and the same top-k set except near-ties, at the dense scorers'
+   shapes (filtered, k = 2,000) and one of the Pallas kernel's own.
+4. Drives the port's main paths on ``bench.py``'s 100k-doc Zipf corpus,
+   ingested through the port's own ``Index`` and writer (one commit, plus
+   a numeric fast field ``bucket = i % 16``), through ``index.reader()``
+   (the port's ``IndexReader``, on the card), each with the launch counts
+   set to 0 just before it and read just after:
    a. the oversized-budget stream: ``search_batch_many`` over three
       1024-query batches (coalesced into one launch set) with
       ``output="arrays"``, and one ``search_batch`` in pairs form: the
@@ -31,13 +34,15 @@ NVIDIA GPU.
       filters (all dense), and a 32-query batch with ``limit=2000``
       (dense); prints the rows each route scored.
    Every result is checked against ``bench.py``'s f64 oracle under
-   ``SEARCHLITE_PRECISION=f32_strict`` (masked by the filter where there is
-   one; result counts too), and every path must launch its kernels,
-   never run a plain version and never gather a strip on the card.
+   ``SEARCHLITE_PRECISION=f32_strict`` (masked by the port's filter where
+   there is one; result counts too), and every path must launch its
+   kernels, never run a plain version and never gather a strip on the
+   card.
 
 Prints one JSON line of per-kernel results before the last line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure exits
-non-zero without that line. Never imports JAX.
+non-zero without that line. Never imports JAX or ``searchlite_tpu`` (both
+are blocked in ``sys.modules``).
 """
 
 from __future__ import annotations
@@ -50,7 +55,9 @@ import time
 
 import numpy as np
 
-sys.modules["jax"] = None  # the port must run without JAX: fail loudly
+# the port must run without JAX and without the JAX package: fail loudly
+sys.modules["jax"] = None
+sys.modules["searchlite_tpu"] = None
 
 # widths [rows, lanes] the headline stream gives the strip kernel: one
 # coalesced 3,072-query launch set at 100k docs (tiers of 16/32/128/512
@@ -76,6 +83,10 @@ FUSED_SHAPES = [
     ("pallas family", 128, 64, 0, 1024, K, 0),
 ]
 RTOL, ATOL = 1e-6, 1e-4  # bench.py's f32_strict gate
+# an H100 SXM's published peaks: HBM bytes/s, f32 FLOP/s outside the
+# tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
 # per-query filters of the filtered batch, over bucket = i % 16
 FILTERS = [None,
            {"I64Range": {"field": "bucket", "min": 0, "max": 7}},
@@ -218,6 +229,54 @@ def time_pair(kernel, plain, iters: int):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def bound_ms(ops: int, nbytes: int) -> tuple[float, str]:
+    """The least time the card could take: the bytes over the HBM rate
+    against the operations over the f32 rate, the larger of the two."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def strip_work(bstart, bcnt, k: int):
+    """(operations, bytes) of one strip launch on these tables: every
+    block row some row reads (doc and impact, 1 KiB) once, the tables, the
+    output keys; a multiply and an add per live lane."""
+    rows = set()
+    for b in range(bstart.shape[0]):
+        for j in range(bstart.shape[1]):
+            rows.update(range(int(bstart[b, j]),
+                              int(bstart[b, j]) + int(bcnt[b, j])))
+    lanes = int(bcnt.sum()) * 128
+    nbytes = len(rows) * 128 * 8 + bstart.size * 12 + bstart.shape[0] * k * 8
+    return 2 * lanes, nbytes
+
+
+def fused_work(w1, m1, deleted, k: int, w2=None, m2=None, filter_rows=None,
+               fidx=None):
+    """(operations, bytes) of one fused call on these inputs: an FMA per
+    nonzero weight and doc of every query some doc can match (a query
+    whose filter matches no live doc needs none); every M row such a query
+    weights read once, the weights, the deletion mask, the filter rows the
+    queries name, the output written once."""
+    import torch
+
+    n = m1.shape[1]
+    live = torch.ones(w1.shape[0], dtype=torch.bool, device=w1.device)
+    if filter_rows is not None:
+        live = (filter_rows[fidx.long()] & ~deleted[None, :]).any(dim=1)
+    ops = 0
+    nbytes = n + w1.shape[0] * k * 8
+    for w in (w1, w2):
+        if w is None:
+            continue
+        nz = (w != 0) & live[:, None]
+        ops += 2 * int(nz.sum()) * n
+        nbytes += w.numel() * 4 + int(nz.any(dim=0).sum()) * n * 4
+    if filter_rows is not None:
+        nbytes += fidx.numel() * 4 + int(torch.unique(fidx).numel()) * n
+    return ops, nbytes
+
+
 def check_strip_kernel(seg, n1: int, shapes, k: int = K, t_pad: int = 4,
                        seed: int = 5, n_big: int = 1):
     """The strip kernel vs its plain version on the card, per (rows,
@@ -270,14 +329,16 @@ def check_strip_kernel(seg, n1: int, shapes, k: int = K, t_pad: int = 4,
         t_kern, t_plain = time_pair(
             lambda: strip_topk_blocks(*args, **kw),
             lambda: strip_topk_blocks_plain(*args, **kw), iters)
+        bms, by = bound_ms(*strip_work(bstart_np, bcnt_np, kk))
         row = {"rows": B, "lanes": L, "k": kk, "t_pad": t_pad,
-               "multi": multi,
+               "multi": multi, "bound_ms": bms, "bound_by": by,
                "max_abs_err": float(np.abs(ts[fin] - ps[fin]).max())
                if fin.any() else 0.0,
                "finite": int(fin.sum()), "ms": t_kern, "plain_ms": t_plain}
         log(f"strip_topk {name}: bit-identical ({row['finite']} finite "
             f"entries, counts equal, a doc in up to {multi} slots); kernel "
-            f"{t_kern:.4f} ms, plain {t_plain:.4f} ms")
+            f"{t_kern:.4f} ms, plain {t_plain:.4f} ms, bound {bms:.4f} ms "
+            f"({by})")
         rows.append(row)
         del args
     return rows
@@ -371,14 +432,23 @@ def check_fused_kernel(seed: int = 17):
         t_kern, t_plain = time_pair(
             lambda: fused_topk(w1, m1, deleted, k=k, **kw),
             lambda: fused_topk_plain(w1, m1, deleted, k=k, **kw), iters)
+        # the library yardstick: one torch.matmul (TF32 off) of the score
+        # part over the concatenated operands; the port never calls it
+        wcat = torch.cat([w1, kw["w2"]], 1) if S else w1
+        mcat = torch.cat([m1, kw["m2"]], 0) if S else m1
+        t_lib = time_ms(lambda: torch.matmul(wcat, mcat), iters)
+        del wcat, mcat
+        bms, by = bound_ms(*fused_work(w1, m1, deleted, k, **kw))
         row = {"name": name, "shape": [Q, R, S, N], "k": k,
                "max_abs_err": err, "finite": int(np.isfinite(ts).sum()),
-               "ms": t_kern, "plain_ms": t_plain}
+               "ms": t_kern, "plain_ms": t_plain, "library_ms": t_lib,
+               "bound_ms": bms, "bound_by": by}
         log(f"fused_topk {name}: Wd [{Q}, {R}] Md [{R}, {N}]"
             + (f" + Ws [{Q}, {S}] Ms [{S}, {N}]" if S else "")
             + (f", {nf} filter rows" if nf else "")
             + f", k={k}: agrees ({row['finite']} finite, max abs err "
-            f"{err:.3g}); kernel {t_kern:.4f} ms, plain {t_plain:.4f} ms")
+            f"{err:.3g}); kernel {t_kern:.4f} ms, plain {t_plain:.4f} ms, "
+            f"matmul {t_lib:.4f} ms, bound {bms:.4f} ms ({by})")
         rows.append(row)
         del w1, m1, deleted, kw
     return rows
@@ -424,9 +494,9 @@ def build_index():
     """bench.py's corpus in one commit, plus a numeric fast field
     ``bucket = i % 16`` for the filtered batch (body text unchanged)."""
     import bench
-    from searchlite_tpu.api.types import IndexOptions, StorageType
-    from searchlite_tpu.index import Index
-    from searchlite_tpu.index.manifest import Schema
+    from searchlite_tpu_torch.api.types import IndexOptions, StorageType
+    from searchlite_tpu_torch.index import Index
+    from searchlite_tpu_torch.index.manifest import Schema
 
     t0 = time.perf_counter()
     index = Index.create(
@@ -513,8 +583,8 @@ def verify_masked(reader, queries, filters, results, limit):
     """bench.verify_vs_oracle with each query's filter applied to the
     oracle, plus the result count: min(limit, matching docs)."""
     import bench
-    from searchlite_tpu.api.types import Filter
-    from searchlite_tpu.query.filters import compute_filters_mask
+    from searchlite_tpu_torch.api.types import Filter
+    from searchlite_tpu_torch.query.filters import compute_filters_mask
 
     seg = reader.segments[0]
     masks = {}
@@ -614,7 +684,6 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from searchlite_tpu_torch.api.reader import IndexReader
     from searchlite_tpu_torch.ops import _kernels
 
     t0 = time.perf_counter()
@@ -649,7 +718,7 @@ def main() -> int:
 
     index = build_index()
     t1 = time.perf_counter()
-    reader = IndexReader(index, device="cuda")
+    reader = index.reader()  # the port's reader, on the card
     log(f"reader open + upload {time.perf_counter() - t1:.1f} s, "
         f"{len(reader.segments)} segment(s), "
         f"n1={reader.device_segments[0].n1}")
@@ -662,8 +731,9 @@ def main() -> int:
     for rec in records:
         log(f"under-budget {rec['name']}: {rec['ms']:.2f} ms on "
             f"{card_line()} (information, not a benchmark)")
-    if "jax" in sys.modules and sys.modules["jax"] is not None:
-        raise AssertionError("JAX was imported")
+    for blocked in ("jax", "searchlite_tpu"):
+        if sys.modules.get(blocked) is not None:
+            raise AssertionError(f"{blocked} was imported")
     main_fused = next(r for r in fused_rows if r["name"] == "b256 filtered")
     kernels = [{
         "name": "strip_topk",
@@ -676,6 +746,10 @@ def main() -> int:
         # one coalesced 3,072-query launch set: the four stream tiers
         "ms": sum(r["ms"] for r in stream_rows),
         "plain_ms": sum(r["plain_ms"] for r in stream_rows),
+        "bound_ms": sum(r["bound_ms"] for r in stream_rows),
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes"
+                                   for r in stream_rows) else "operations",
+        "library_ms": None,  # no single PyTorch call computes it
     }, {
         "name": "fused_topk",
         "route": "cuda",
@@ -687,6 +761,9 @@ def main() -> int:
         # the filtered b256 batch: every row dense
         "ms": main_fused["ms"],
         "plain_ms": main_fused["plain_ms"],
+        "bound_ms": main_fused["bound_ms"],
+        "bound_by": main_fused["bound_by"],
+        "library_ms": main_fused["library_ms"],
     }]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,14 +1,14 @@
 """IndexReader: batched BM25 search over torch tensors.
 
 The batched half of ``searchlite_tpu/api/reader.py`` (``search_batch`` /
-``search_batch_many`` with ``execution="bm25"``), on one explicit torch
-device, routed as the JAX reader routes: per segment, the dense-M
+``search_batch_many`` with ``execution="bm25"``), on one torch device
+(the card unless the caller asks for the CPU), routed as the JAX reader routes: per segment, the dense-M
 estimate ``(s_pad + Q) * n1 * 4`` against ``SEARCHLITE_M_BUDGET_BYTES``.
 
 Under the budget (``_launch_batch_segment``), with per-query filters and
 any k up to the doc axis:
 
-1. native query prep (shared, ``build_impact_batch_native``);
+1. native query prep (``build_impact_batch_native``);
 2. unfiltered batches with k <= 1024 first try candidate strips: rows
    whose posting blocks fit 32 blocks ride packed strips in pow-4 tiers;
    rows with head terms ride the term-split scorer (light terms on the
@@ -42,9 +42,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from searchlite_tpu.api.types import Filter
-from searchlite_tpu.errors import QueryError, StorageError
-from searchlite_tpu.ops.impact import (
+from searchlite_tpu_torch.api.types import Filter
+from searchlite_tpu_torch.errors import QueryError, StorageError
+from searchlite_tpu_torch.native import get_results_mod
+from searchlite_tpu_torch.ops.impact import (
     build_impact_batch,
     build_impact_batch_native,
     ensure_dense_tables,
@@ -52,13 +53,17 @@ from searchlite_tpu.ops.impact import (
     split_impact_batch,
     subset_impact_batch,
 )
-from searchlite_tpu.ops.sparse import (
+from searchlite_tpu_torch.ops.sparse import (
     STRIP_CHUNK_ELEMS,
     partition_sparse_batch,
     partition_sparse_batch_split,
     partition_sparse_batch_tiered,
 )
-from searchlite_tpu.query.filters import compute_filters_mask, validate_filter
+from searchlite_tpu_torch.query.filters import (
+    compute_filters_mask,
+    validate_filter,
+)
+from searchlite_tpu_torch.query.parser import parse_query
 from searchlite_tpu_torch.device.index import cached_segment
 from searchlite_tpu_torch.ops.impact import impact_scorer, split_impact_scorer
 from searchlite_tpu_torch.ops.sparse import (
@@ -84,14 +89,16 @@ def _not_ported(what: str, item: str):
 
 class IndexReader:
     """Batched reader over ``index`` with every segment's tensors on
-    ``device`` (required: there is no default device).
+    ``device``: the card by default, the CPU only when the caller asks
+    (``device="cpu"``). Raises where CUDA is absent; it never falls back
+    to the CPU.
 
     ``route_rows`` counts the rows each route scored (``strip``: light
     rows on plain strips, ``split``: term-split rows with a head term,
     ``dense``: rows through the dense scorers, fallback waves included,
     ``fallback``: unsound term-split rows re-scored dense)."""
 
-    def __init__(self, index, device):
+    def __init__(self, index, device="cuda"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -372,8 +379,6 @@ class IndexReader:
     def _analyze_batches(self, batches, fields):
         """Python query analysis for batches the native prep rejects:
         per-query (field, token) pairs, memoized per (field, raw term)."""
-        from searchlite_tpu.query.parser import parse_query
-
         cache = self._token_cache
 
         def term_pairs(field: str, raw_term: str):
@@ -784,8 +789,6 @@ class IndexReader:
             # -inf cells may hold the dead slot: clip, they are never read
             docstrs[mask] = dids[np.minimum(ids[mask], len(dids) - 1)]
         take = (scores != -np.inf).sum(axis=1).astype(np.int64)
-        from searchlite_tpu.native import get_results_mod
-
         mod = get_results_mod()
         if mod is not None:
             return mod.build(np.ascontiguousarray(docstrs),

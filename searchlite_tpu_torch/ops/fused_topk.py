@@ -22,16 +22,13 @@ import ctypes
 
 import torch
 
-from searchlite_tpu.ops.impact import next_pow2
 from searchlite_tpu_torch.ops.strip_topk import LaunchCounts
 
 COUNTS = LaunchCounts()
 
-# the kernel's doc chunk (csrc/fused_topk.cu BN): each (query, chunk) keeps
-# its top min(CHUNK, max(16, k)) candidates for the merge
-CHUNK = 128
-# its query tile (BM): each tile lists the K rows its queries weight
-QUERY_TILE = 64
+# the kernel's doc chunk (csrc/fused_topk.cu kChunk): each (query, chunk)
+# keeps its top min(k, CHUNK) candidates for the row's selection
+CHUNK = 1024
 
 
 def _check(w1, m1, deleted, k, w2, m2, filter_rows, fidx):
@@ -108,47 +105,61 @@ def fused_topk_plain(w1, m1, deleted, *, k: int, w2=None, m2=None,
     return ts, td
 
 
-def _fused_topk_cuda(w1, m1, deleted, *, k: int, w2, m2, filter_rows,
-                     fidx):
-    from searchlite_tpu_torch.ops._kernels import load
+_LIB = None
 
-    lib = load("fused_topk")
+
+def _set_signatures(lib):
+    """Set the C signatures of a build of ``csrc/fused_topk.cu``."""
+    lib.fused_topk_chunk.restype = ctypes.c_int
+    lib.fused_topk_chunk.argtypes = []
+    lib.fused_topk_workspace_bytes.restype = ctypes.c_longlong
+    lib.fused_topk_workspace_bytes.argtypes = [ctypes.c_int] * 5
     fn = lib.fused_topk_launch
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
                    + [ctypes.c_void_p] * 2 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p] * 6)
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p, ctypes.c_longlong]
+                   + [ctypes.c_void_p] * 3)
+    return lib
+
+
+def _lib():
+    """The kernel library, built on first use."""
+    global _LIB
+    if _LIB is None:
+        from searchlite_tpu_torch.ops._kernels import load
+
+        _LIB = _set_signatures(load("fused_topk"))
+    return _LIB
+
+
+def _fused_topk_cuda(w1, m1, deleted, *, k: int, w2, m2, filter_rows,
+                     fidx):
     tensors = [w1, m1, deleted] + [t for t in (w2, m2, filter_rows, fidx)
                                    if t is not None]
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("fused_topk needs contiguous operands")
+    lib = _lib()
     q, n = w1.shape[0], m1.shape[1]
+    k1 = m1.shape[0]
+    k2 = 0 if m2 is None else m2.shape[0]
     dev = w1.device
     ts = torch.empty((q, k), dtype=torch.float32, device=dev)
     td = torch.empty((q, k), dtype=torch.int32, device=dev)
     if q == 0:
         return ts, td
-    kc = min(CHUNK, max(16, k))
-    n_chunks = -(-n // CHUNK)
-    k2 = next_pow2(k)
-    k_rows = m1.shape[0] + (0 if m2 is None else m2.shape[0])
-    rows = torch.empty((-(-q // QUERY_TILE) * (k_rows + 2),),
-                       dtype=torch.int32, device=dev)
-    cand = torch.empty((q, n_chunks * kc), dtype=torch.int64, device=dev)
-    scratch = None
-    if k2 > lib.fused_topk_sort_smem_keys():
-        scratch = torch.empty((q, k2), dtype=torch.int64, device=dev)
+    ws_bytes = lib.fused_topk_workspace_bytes(q, n, k1, k2, k)
+    ws = torch.empty((ws_bytes,), dtype=torch.uint8, device=dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(w1.data_ptr(), m1.data_ptr(), m1.shape[0], ptr(w2), ptr(m2),
-             0 if m2 is None else m2.shape[0], deleted.data_ptr(),
-             ptr(filter_rows), ptr(fidx), q, n, k, k2, kc, rows.data_ptr(),
-             cand.data_ptr(), ts.data_ptr(), td.data_ptr(), ptr(scratch),
-             stream)
+    err = lib.fused_topk_launch(
+        w1.data_ptr(), m1.data_ptr(), k1, ptr(w2), ptr(m2), k2,
+        deleted.data_ptr(), ptr(filter_rows), ptr(fidx), q, n, k,
+        ws.data_ptr(), ws_bytes, ts.data_ptr(), td.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"fused_topk launch failed: cudaError {err} "
                            f"(Q={q}, N={n}, k={k})")

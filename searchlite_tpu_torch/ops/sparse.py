@@ -1,7 +1,7 @@
 """Batched sparse candidate scoring in PyTorch: top-k over each query's
 own posting blocks.
 
-The device half of ``searchlite_tpu/ops/sparse.py``. Per query row, the
+The port of ``searchlite_tpu/ops/sparse.py``. Per query row, the
 posting blocks of its terms form a ``[B, nblk*128]`` candidate strip of
 (doc, impact x weight); the strip core
 (:func:`searchlite_tpu_torch.ops.strip_topk.strip_topk_blocks`) sums
@@ -9,10 +9,10 @@ duplicate docs and takes the top-k. On CUDA tensors the strip is never
 materialised: the hand-written Hopper kernel reads the posting blocks in
 place and searches the terms' pre-sorted doc runs. On CPU tensors the
 plain version gathers the strip (:func:`strip_gather`) and sorts it. The
-host partitions that build the per-batch tables
-(``partition_sparse_batch_tiered``, ``partition_sparse_batch``,
-``subset_impact_batch``) are numpy and are imported from the JAX package,
-not copied.
+host half -- the per-batch partitions (``partition_sparse_batch_tiered``,
+``partition_sparse_batch_split``, ``partition_sparse_batch``) and the
+heavy-term lookup build (``build_heavy_lookup_host``) -- is this
+package's own numpy copy of the JAX module's and builds the same arrays.
 
 Sentinels follow the reference: ``sent`` is the segment's ``[2]`` int32
 tensor (sentinel block row, dead doc slot ``n1-1``), read on device so
@@ -21,13 +21,421 @@ no call waits for the host.
 
 from __future__ import annotations
 
+import os
+
+import numpy as np
 import torch
 
-from searchlite_tpu.ops.sparse import TID_BITS, TID_LIMIT
+from searchlite_tpu_torch.ops.impact import (
+    csr_row_lengths,
+    csr_take_rows,
+    next_pow2,
+    pow15_bucket,
+)
 from searchlite_tpu_torch.ops.strip_topk import (  # noqa: F401
     strip_gather,
     strip_topk_blocks,
 )
+
+# Packed per-(query, slot) upload format (``_pack_entries`` /
+# ``sparse_candidate_scorer_packed``): one int32 carries the term id in the
+# low 26 bits and the within-query occurrence count in bits 26..30 (sign
+# bit clear). Segments with >= 2^26 terms or queries repeating one term
+# more than 31 times take the explicit-table path.
+TID_BITS = 26
+TID_LIMIT = 1 << TID_BITS
+OCC_MAX = 31
+
+# -- host partitions (numpy) -------------------------------------------------
+
+
+def build_heavy_lookup_host(postings, block_docs_np, block_impacts_np,
+                            n1: int, term_cap: int):
+    """Host build of the per-segment heavy-term doc→block lookup used
+    by the term-split candidate scorer (TPU-native batched WAND — see
+    make_sparse_candidate_scorer_split).
+
+    For every term with more than ``term_cap`` posting blocks, the doc
+    axis is cut into pow-2 groups of width G (per term, G chosen so
+    any group's docs lie within TWO consecutive blocks — G = 128
+    always satisfies this because a 128-posting block spans ≥ 127
+    docs, and wider G is used when the term's average block span
+    allows). ``tbl[base + (doc >> log2g)]`` then names the first of
+    the ≤ 2 blocks that can contain ``doc``: one int32 gather plus two
+    128-wide block-row gathers replace the reference's posting-cursor
+    skip_to (`query/wand.rs:883-891`) — no per-wave run tables, no
+    per-batch upload.
+
+    Returns dict of host arrays: ``tbl`` int32 [total_entries+1]
+    (absolute block-row ids), ``base`` int32 [n_terms] (−1 = term has
+    no row), ``log2g`` int32 [n_terms], ``maximp`` f32 [n_terms]
+    (per-term max impact incl. tombstoned docs — a sound upper bound
+    for the non-candidate pruning check)."""
+    nb = postings.term_block_count.astype(np.int64)
+    start = postings.term_block_start.astype(np.int64)
+    n_terms = len(nb)
+    base = np.full(n_terms, -1, dtype=np.int32)
+    log2g = np.zeros(n_terms, dtype=np.int32)
+    # per-term max impact: blocks are term-contiguous & ascending
+    maximp = np.zeros(n_terms, dtype=np.float32)
+    has = nb > 0
+    if has.any():
+        bmax = block_impacts_np[: int((start + nb).max()), :].max(
+            axis=1).astype(np.float32)
+        red = np.maximum.reduceat(bmax, start[has])
+        maximp[has] = red
+    heavy = np.flatnonzero(nb > term_cap)
+    parts = []
+    total = 0
+    for t in heavy:
+        s, c = int(start[t]), int(nb[t])
+        lasts = block_docs_np[s:s + c, -1].astype(np.int64)
+        g = 128
+        span = max(128 * n1 // max(int(postings.term_df[t]), 1), 128)
+        while g * 2 <= span:
+            g *= 2
+        while g > 128:
+            lo = np.minimum(
+                np.searchsorted(lasts, np.arange(0, n1, g)), c - 1)
+            if np.all(np.diff(lo) <= 1):
+                break
+            g //= 2
+        lo = np.minimum(
+            np.searchsorted(lasts, np.arange(0, n1, g)), c - 1)
+        parts.append((lo + s).astype(np.int32))
+        base[t] = total
+        log2g[t] = int(g).bit_length() - 1
+        total += len(lo)
+    tbl = (np.concatenate(parts + [np.zeros(1, dtype=np.int32)])
+           if parts else np.zeros(1, dtype=np.int32))
+    return {"tbl": tbl, "base": base, "log2g": log2g,
+            "maximp": maximp}
+
+
+def tier_bounds(max_blocks: int) -> list:
+    """Ladder of light-row tiers up to ``max_blocks``: pow-4 to 512
+    (e.g. 512 → [8, 32, 128, 512]), pow-2 beyond (8192 →
+    [8, 32, 128, 512, 1024, ..., 8192]). The candidate scorer pads
+    every row's strip to the GROUP's max block count, so mixing a
+    480-block query into a batch of 4-block queries makes every row
+    sort a 61k-candidate strip; tiering keeps each row's padding
+    bounded (4x low tiers, 2x above 512 — where the strip sort is the
+    dominant cost and pad columns are pure waste) at the cost of one
+    launch per occupied tier."""
+    bounds = []
+    b = 8
+    while b < max_blocks:
+        bounds.append(b)
+        b *= 4 if b < 512 else 2
+    bounds.append(max_blocks)
+    return bounds
+
+
+# per-launch candidate-strip element cap (docs+impacts i32/f32 pairs):
+# a group whose rows x padded strip width exceed it is emitted as
+# multiple row chunks so one wide tier can't blow the device memory
+# budget (16 rows x 2M-candidate strips = 256M elements = 2 GB already).
+STRIP_CHUNK_ELEMS = int(os.environ.get(
+    "SEARCHLITE_STRIP_CHUNK_ELEMS", str(128 * 1024 * 1024)))
+
+
+def _chunk_rows(n_rows: int, nblk: int) -> int:
+    """Rows per launch for a tier whose padded strips hold
+    ``nblk`` * 128 candidates, bounded by STRIP_CHUNK_ELEMS."""
+    per = max(16, STRIP_CHUNK_ELEMS // max(nblk * 128, 1))
+    return min(n_rows, per)
+
+
+def _split_light(qb, max_blocks: int):
+    """Shared light/heavy split of a build_impact_batch() output by
+    per-query gathered-block count: queries at or under ``max_blocks``
+    go to the candidate scorer, the rest (head-term queries, whose
+    candidate strips would stretch every row of the batch) stay on the
+    dense path. Returns None when no query qualifies, else the light
+    rows' CSR entry gather + bucketed static shapes."""
+    nblk_q = qb["q_nblk"]
+    light = nblk_q <= max_blocks
+    if not light.any():
+        return None
+    light_idx = np.flatnonzero(light)
+    heavy_idx = np.flatnonzero(~light)
+    counts = csr_row_lengths(qb)
+    idx, sc, pos = csr_take_rows(qb["qs_start"], counts, light_idx)
+    t_max = int(sc.max()) if len(sc) else 1
+    t_pad = next_pow2(max(t_max, 2))
+    return {
+        "idx": idx,
+        "pos": pos,
+        "rows_rep": np.repeat(
+            np.arange(len(light_idx), dtype=np.int64), sc),
+        "light_idx": light_idx,
+        "heavy_idx": heavy_idx,
+        "t_pad": t_pad,
+        "nblk": pow15_bucket(int(nblk_q[light_idx].max()), minimum=16),
+        "bl": pow15_bucket(len(light_idx), minimum=64),
+        "log2_run": max((t_pad - 1).bit_length(), 1),
+    }
+
+
+def partition_sparse_batch(qb, max_blocks: int):
+    """Explicit-table emission of the light/heavy split: the light
+    rows' [3, Bl, t_pad] (bstart, bcnt, weight) upload for
+    make_sparse_candidate_scorer(). Returns None when no query
+    qualifies."""
+    sp = _split_light(qb, max_blocks)
+    if sp is None:
+        return None
+    idx, pos, rows_rep = sp["idx"], sp["pos"], sp["rows_rep"]
+    t_pad, bl = sp["t_pad"], sp["bl"]
+    bstart = np.zeros((bl, t_pad), dtype=np.int32)
+    bcnt = np.zeros((bl, t_pad), dtype=np.int32)
+    w = np.zeros((bl, t_pad), dtype=np.float32)
+    slots = qb["qs_slot"][idx]
+    bstart[rows_rep, pos] = qb["slot_bstart"][slots]
+    bcnt[rows_rep, pos] = qb["slot_bcnt"][slots]
+    w[rows_rep, pos] = qb["qs_w"][idx]
+    sp["tbl"] = np.stack([bstart, bcnt, w.view(np.int32)])
+    return sp
+
+
+def _packed_applies(qb) -> bool:
+    """Batch-global guards for the packed upload format: per-entry
+    occurrence counts present, term ids under 2^26, occurrence counts
+    at most 31."""
+    qs_cnt = qb.get("qs_cnt")
+    if qs_cnt is None:
+        return False
+    slot_tids = qb["slot_tids"]
+    if len(slot_tids) and int(slot_tids.max()) >= TID_LIMIT:
+        return False
+    if len(qs_cnt) and int(qs_cnt.max()) > OCC_MAX:
+        return False
+    return True
+
+
+def _take_kept(qb, row_idx, entry_keep):
+    """Row-major CSR expansion of the given rows' entries restricted
+    to ``entry_keep`` (bool over the global qs_* entry axis). Returns
+    (idx, rows_rep, pos, sc): kept global entry indices, their row
+    ordinal within ``row_idx``, within-row rank, and per-row kept
+    counts."""
+    counts = csr_row_lengths(qb)
+    idx, sc, _pos = csr_take_rows(qb["qs_start"], counts, row_idx)
+    rows_rep = np.repeat(np.arange(len(row_idx), dtype=np.int64), sc)
+    keep = entry_keep[idx]
+    idx = idx[keep]
+    rows_rep = rows_rep[keep]
+    sc2 = np.bincount(rows_rep, minlength=len(row_idx)).astype(np.int64)
+    starts2 = np.concatenate([[0], np.cumsum(sc2)[:-1]])
+    pos = np.arange(len(idx), dtype=np.int64) - starts2[rows_rep]
+    return idx, rows_rep, pos, sc2
+
+
+def _emit_packed_rows(qb, row_idx, idf32, bl_min: int = 64):
+    """Packed [bl, t_pad] int32 of (tid | occ << 26) for the given
+    query rows, plus the (usually empty) weight-override COO: entries
+    where the device's f32(occ)*f32(idf) double-rounds away from the
+    host's f32(occ * f64(idf)) ship their exact weight. ``idf32`` is
+    the segment's f64 idf table pre-rounded to f32 — the values the
+    device recomputes weights from (DeviceSegment.idf32 must match
+    sparse_tid_tbl's row 2)."""
+    counts = csr_row_lengths(qb)
+    idx, sc, pos = csr_take_rows(qb["qs_start"], counts, row_idx)
+    t_max = int(sc.max()) if len(sc) else 1
+    rows_rep = np.repeat(np.arange(len(row_idx), dtype=np.int64), sc)
+    return _pack_entries(qb, idx, rows_rep, pos, len(row_idx), t_max,
+                         idf32, bl_min)
+
+
+def _pack_entries(qb, idx, rows_rep, pos, n_rows, t_max, idf32,
+                  bl_min):
+    """Shared packed-table emission from a row-major entry selection
+    (see _emit_packed_rows for the format)."""
+    t_pad = next_pow2(max(t_max, 2))
+    bl = pow15_bucket(n_rows, minimum=bl_min)
+    occ = qb["qs_cnt"][idx]
+    slots = qb["qs_slot"][idx]
+    tids_e = qb["slot_tids"][slots].astype(np.int64)
+    packed = np.zeros((bl, t_pad), dtype=np.int32)
+    packed[rows_rep, pos] = (
+        tids_e | (occ.astype(np.int64) << TID_BITS)).astype(np.int32)
+    qs_w = qb["qs_w"][idx]
+    w_dev = occ.astype(np.float32) * idf32[tids_e]
+    bad = w_dev.view(np.int32) != qs_w.view(np.int32)
+    n_ovr = int(bad.sum())
+    if n_ovr:
+        ov_pad = next_pow2(max(n_ovr, 8))
+        ovr = np.full((2, ov_pad), bl * t_pad, dtype=np.int32)
+        ovr[0, :n_ovr] = (rows_rep[bad] * t_pad + pos[bad]).astype(
+            np.int32)
+        ovr[1, :n_ovr] = qs_w[bad].view(np.int32)
+    else:
+        ovr = np.zeros((2, 1), dtype=np.int32)
+    return {
+        "packed": packed,
+        "ovr": ovr,
+        "n_ovr": next_pow2(max(n_ovr, 8)) if n_ovr else 0,
+        "t_pad": t_pad,
+        "log2_run": max((t_pad - 1).bit_length(), 1),
+    }
+
+
+def partition_sparse_batch_split(qb, max_blocks: int,
+                                 idf32: np.ndarray, k: int,
+                                 term_cap: int, h_max: int,
+                                 maximp: np.ndarray | None = None,
+                                 ub_ratio: float = 0.5):
+    """TERM-level split partition (TPU-native batched WAND): an entry
+    is heavy when ITS term exceeds ``term_cap`` blocks; a row is
+    eligible when its LIGHT entries total ≤ ``max_blocks`` blocks, it
+    has ≤ ``h_max`` heavy entries, and ≥ 1 light entry. Eligible rows
+    ride the candidate strips on their light terms (pow-4 tiers, as
+    partition_sparse_batch_tiered) with per-group heavy tables
+    [2, Bg, h_pad] (term id, exact f32 weight bit-cast) consumed by
+    make_sparse_candidate_scorer_split; the rest fall back dense.
+
+    Against the row-level tiered partition this turns head-term
+    queries — previously ALL dense — into strip rows with a 2-block
+    point lookup per heavy term, at the price of a per-row soundness
+    certificate (rows whose certificate fails must be re-scored dense;
+    the scorer returns the flags). Groups without heavy entries carry
+    ``hvy=None`` and should run the plain packed scorer."""
+    if not _packed_applies(qb):
+        return None
+    nq = qb["n_queries"]
+    counts = csr_row_lengths(qb)
+    row_of = np.repeat(np.arange(nq, dtype=np.int64), counts)
+    ent_bcnt = qb["slot_bcnt"][qb["qs_slot"]].astype(np.int64)
+    heavy_e = ent_bcnt > term_cap
+    n_heavy = np.bincount(row_of[heavy_e], minlength=nq)
+    light_blocks = np.bincount(
+        row_of[~heavy_e], weights=ent_bcnt[~heavy_e],
+        minlength=nq).astype(np.int64)
+    n_light = np.bincount(row_of[~heavy_e], minlength=nq)
+    eligible = ((light_blocks <= max_blocks) & (n_heavy <= h_max)
+                & ((n_light > 0) | (n_heavy == 0)))
+    if maximp is not None and ub_ratio > 0:
+        # host routing predictor: a split row's certificate needs its
+        # k-th candidate score to strictly beat HUB = Σ_heavy w·maximp.
+        # θ is unknowable before scoring, but rows where HUB rivals
+        # even the best light term's ceiling (max_light w·maximp)
+        # almost always fail it — send those straight to the dense
+        # path instead of scoring them twice. Pure routing: mispredicts
+        # are caught by the certificate (→ fallback wave) or merely
+        # dense-score a row that would have been sound.
+        ent_ub = qb["qs_w"] * maximp[
+            qb["slot_tids"][qb["qs_slot"]]].astype(np.float32)
+        hub = np.bincount(row_of[heavy_e], weights=ent_ub[heavy_e],
+                          minlength=nq)
+        lmax = np.zeros(nq, dtype=np.float64)
+        np.maximum.at(lmax, row_of[~heavy_e], ent_ub[~heavy_e])
+        eligible &= (n_heavy == 0) | (hub < ub_ratio * lmax)
+    if not eligible.any():
+        return None
+    light_idx = np.flatnonzero(eligible)
+    heavy_idx = np.flatnonzero(~eligible)
+    nblk_min = -(-k // 128)  # strips must hold at least k candidates
+    groups = []
+    prev = -1  # first tier includes 0-block strips (all-df-0 rows)
+    for bound in tier_bounds(max_blocks):
+        lb = light_blocks[light_idx]
+        sel = (lb > prev) & (lb <= bound)
+        prev = bound
+        if not sel.any():
+            continue
+        pos_sel = np.flatnonzero(sel)
+        nblk_tier = pow15_bucket(
+            max(int(lb[pos_sel].max()), nblk_min), minimum=16)
+        step = _chunk_rows(len(pos_sel), nblk_tier)
+        if step < len(pos_sel):
+            # width-ascending order within the tier: row chunks then
+            # get chunk-local nblk buckets (early chunks pad less)
+            pos_sel = pos_sel[np.argsort(lb[pos_sel], kind="stable")]
+        for c0 in range(0, len(pos_sel), step):
+            pos_c = pos_sel[c0:c0 + step]
+            rows = light_idx[pos_c]
+            lidx, lrows, lpos, lsc = _take_kept(qb, rows, ~heavy_e)
+            g = _pack_entries(qb, lidx, lrows, lpos, len(rows),
+                              int(lsc.max()) if len(lsc) else 1,
+                              idf32, bl_min=16)
+            g["pos_in_light"] = pos_c
+            g["nblk"] = pow15_bucket(
+                max(int(lb[pos_c].max()), nblk_min), minimum=16)
+            nh = n_heavy[rows]
+            if nh.any():
+                bl = g["packed"].shape[0]
+                h_pad = next_pow2(max(int(nh.max()), 1))
+                hidx, hrows, hpos, _hsc = _take_kept(qb, rows, heavy_e)
+                hvy = np.zeros((2, bl, h_pad), dtype=np.int32)
+                htids = qb["slot_tids"][qb["qs_slot"][hidx]]
+                hvy[0, hrows, hpos] = htids.astype(np.int32)
+                hvy[1, hrows, hpos] = qb["qs_w"][hidx].view(np.int32)
+                g["hvy"] = hvy
+                g["h_pad"] = h_pad
+            else:
+                g["hvy"] = None
+            groups.append(g)
+    return {
+        "groups": groups,
+        "light_idx": light_idx,
+        "heavy_idx": heavy_idx,
+        "bl": pow15_bucket(len(light_idx), minimum=64),
+        "term_split": True,
+    }
+
+
+def partition_sparse_batch_tiered(qb, max_blocks: int,
+                                  idf32: np.ndarray, k: int):
+    """Tiered packed emission: light rows are grouped into pow-4
+    block-count tiers (tier_bounds), one packed table per occupied
+    tier, so a single wide query can't inflate every other row's
+    candidate strip. Each group's strip is still wide enough for
+    top-k (nblk >= ceil(k/128)). Returns None when the packed format
+    doesn't apply or no query is light."""
+    if not _packed_applies(qb):
+        return None
+    nblk_q = qb["q_nblk"]
+    light = nblk_q <= max_blocks
+    if not light.any():
+        return None
+    light_idx = np.flatnonzero(light)
+    heavy_idx = np.flatnonzero(~light)
+    nblk_min = -(-k // 128)  # strips must hold at least k candidates
+    groups = []
+    # first tier includes 0-block rows (every query term absent from
+    # this segment): they MUST land in a group — an ungrouped light
+    # row would shift every later row in a single-group fast path
+    prev = -1
+    for bound in tier_bounds(max_blocks):
+        sel = (nblk_q[light_idx] > prev) & (nblk_q[light_idx] <= bound)
+        prev = bound
+        if not sel.any():
+            continue
+        pos_sel = np.flatnonzero(sel)
+        nblk_tier = pow15_bucket(
+            max(int(nblk_q[light_idx[pos_sel]].max()), nblk_min),
+            minimum=16)
+        step = _chunk_rows(len(pos_sel), nblk_tier)
+        if step < len(pos_sel):
+            pos_sel = pos_sel[np.argsort(
+                nblk_q[light_idx[pos_sel]], kind="stable")]
+        for c0 in range(0, len(pos_sel), step):
+            pos_c = pos_sel[c0:c0 + step]
+            rows = light_idx[pos_c]
+            g = _emit_packed_rows(qb, rows, idf32, bl_min=16)
+            g["pos_in_light"] = pos_c
+            g["nblk"] = pow15_bucket(
+                max(int(nblk_q[rows].max()), nblk_min), minimum=16)
+            groups.append(g)
+    return {
+        "groups": groups,
+        "light_idx": light_idx,
+        "heavy_idx": heavy_idx,
+        "bl": pow15_bucket(len(light_idx), minimum=64),
+    }
+
+
+# -- device scorers (torch) ---------------------------------------------
 
 
 def candidate_core(block_docs, block_impacts, bstart, bcnt, w, sent, *,

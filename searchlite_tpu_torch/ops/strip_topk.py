@@ -29,8 +29,6 @@ import ctypes
 
 import torch
 
-from searchlite_tpu.ops.impact import next_pow2
-
 
 class LaunchCounts:
     """How often each path of a wrapper ran: ``launches`` counts kernel
@@ -274,7 +272,7 @@ def _strip_topk_blocks_cuda(block_docs, block_impacts, bstart, bcnt, w,
     # a slot's blocks split into tiles of tile_blocks: at most this many
     n_tiles = max((nblk + (tile_blocks - 1) * t_pad) // tile_blocks,
                   -(-k // kt), 1)
-    k2 = next_pow2(k)
+    k2 = 1 << (k - 1).bit_length()  # the next power of two >= k
     # one allocation: the candidate keys, then ts, td, counts and the
     # per-tile counts as 32-bit words
     n_cand = B * n_tiles * kt

@@ -16,8 +16,8 @@ import pytest
 import torch
 
 from searchlite_tpu.ops.pallas_topk import C, QT, make_fused_topk
-from searchlite_tpu_torch.ops.fused_topk import (COUNTS, fused_topk,
-                                                 fused_topk_plain)
+from searchlite_tpu_torch.ops.fused_topk import (CHUNK, COUNTS, _lib,
+                                                 fused_topk, fused_topk_plain)
 
 RTOL, ATOL = 1e-6, 1e-4
 
@@ -206,3 +206,60 @@ def test_kernel_matches_plain_on_card():
                               np.isneginf(ref_s.cpu().numpy()))
         assert (got_i.cpu().numpy()[np.isneginf(got_s.cpu().numpy())]
                 == n - 1).all()
+
+
+# the redesigned kernel's edges: (q, s1, s2, n, k, filter rows). Every case
+# also has a query without any weight (row 0) and, with filters, a filter
+# row that matches nothing (row 1's).
+EDGE_CASES = [
+    (40, 300, 64, 5 * CHUNK - 37, 10, 3),      # N not a multiple of CHUNK
+    (16, 200, 32, 20 * CHUNK, CHUNK - 1, 0),   # k one under the chunk
+    (16, 200, 32, 20 * CHUNK, CHUNK, 2),       # k = the chunk
+    (16, 200, 32, 20 * CHUNK, CHUNK + 1, 2),   # k one over it
+    (13, 120, 0, 8 * CHUNK, 10, 0),            # Q not a multiple of 8
+    (9, 50, 7, 3 * CHUNK + 1, 37, 2),          # odd N: scalar loads
+    (300, 64, 16, 4 * CHUNK, 5, 4),            # many rows, one select level
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,s1,s2,n,k,nf", EDGE_CASES)
+def test_kernel_edges_match_plain_on_card(q, s1, s2, n, k, nf):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    rng = np.random.default_rng(q * 7 + k)
+    w1 = sparse(rng, (q, s1), 4.0 / s1)
+    w1[0] = 0.0
+    m1 = sparse(rng, (s1, n), 0.05)
+    w2 = m2 = None
+    if s2:
+        w2 = sparse(rng, (q, s2), 2.0 / s2)
+        w2[0] = 0.0
+        m2 = sparse(rng, (s2, n), 0.05)
+    deleted = rng.random(n) < 0.05
+    filter_rows = fidx = None
+    if nf:
+        filter_rows = rng.random((nf, n)) < 0.5
+        filter_rows[0] = True
+        filter_rows[-1] = False
+        fidx = rng.integers(0, nf - 1, q).astype(np.int32)
+        fidx[1] = nf - 1
+
+    def cuda(x):
+        return None if x is None else t(x).cuda()
+
+    args = (cuda(w1), cuda(m1), cuda(deleted))
+    kw = dict(k=k, w2=cuda(w2), m2=cuda(m2), filter_rows=cuda(filter_rows),
+              fidx=cuda(fidx))
+    launches = COUNTS.launches
+    got_s, got_i = fused_topk(*args, **kw)
+    assert COUNTS.launches == launches + 1
+    assert _lib().fused_topk_chunk() == CHUNK
+    ref_s, ref_i = fused_topk_plain(*args, **kw)
+    got_s, got_i = got_s.cpu().numpy(), got_i.cpu().numpy()
+    assert_topk_close(ref_s.cpu().numpy(), ref_i.cpu().numpy(), got_s, got_i)
+    assert np.isneginf(got_s[0]).all() and (got_i[0] == n - 1).all()
+    if nf:
+        assert np.isneginf(got_s[1]).all() and (got_i[1] == n - 1).all()
+    assert (got_i[np.isneginf(got_s)] == n - 1).all()
+    assert np.isfinite(got_s).sum() > 0
