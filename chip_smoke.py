@@ -16,7 +16,9 @@ NVIDIA GPU.
    seeded block tables of a synthetic segment at n1 = 131,072 (Zipf
    posting lists, 5% of docs deleted) at the widths the strips produce,
    rows of 8 and 16 term slots, the term-split widths at k = kp, and
-   4 x 524,288 lanes over a segment at n1 = 2^20; the fused score + mask +
+   4 x 524,288 lanes over a segment at n1 = 2^20; its all-lanes pass
+   (every kept doc of a row, no top-k) at the single-query split widths,
+   the same (doc, score) set bit for bit; the fused score + mask +
    top-k kernel within rtol 1e-6 / atol 1e-4 per score, the same finite
    count and the same top-k set except near-ties, at the dense scorers'
    shapes (filtered, k = 2,000) and one of the Pallas kernel's own.
@@ -33,11 +35,21 @@ NVIDIA GPU.
       split, dense remainder), the same 256 queries with per-query
       filters (all dense), and a 32-query batch with ``limit=2000``
       (dense); prints the rows each route scored.
+   c. single-query ``search()``: bench.py's 9 single queries as default
+      requests (warmed, then timed once each; the dense compiled
+      executor), a structured set (bool with must / must_not and a
+      ``bucket`` filter, a phrase, a function_score over ``bucket``, a
+      field sort drained through ``search_scroll``), and the sparse
+      single routes with ``SEARCHLITE_SINGLE_SPARSE_MIN_DOCS=0``: 64 of
+      bench.py's queries plus 16 holding one or two of the head terms
+      ``tok0``-``tok3`` (past the 512-block term cap: the term split,
+      whose strip pass returns every kept doc, ``strip_lanes_blocks``);
+      prints the p50s, the segments and strip launches per route.
    Every result is checked against ``bench.py``'s f64 oracle under
    ``SEARCHLITE_PRECISION=f32_strict`` (masked by the port's filter where
-   there is one; result counts too), and every path must launch its
-   kernels, never run a plain version and never gather a strip on the
-   card.
+   there is one; result counts too; the structured set against oracles
+   with host-computed masks), and every path must launch its kernels,
+   never run a plain version and never gather a strip on the card.
 
 Prints one JSON line of per-kernel results before the last line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure exits
@@ -71,6 +83,9 @@ WIDE_SHAPE = (4, 524288)
 SPLIT_SHAPES = [(16, 4096, 4096), (16, 2048, 2048), (4, 16384, 8192)]
 # rows of 8 and 16 term slots (log2_run 3 and 4)
 T_PAD_SHAPES = [(64, 8192, 8), (32, 4096, 16)]
+# the single-query term split reads every kept doc of one row's strip (a
+# light strip of up to 512 blocks, bucketed): [rows, lanes]
+LANES_SHAPES = [(1, 24576), (1, 65536)]
 K = 10
 N1 = 131072  # the 100k-doc corpus' padded doc axis
 N1_1M = 1 << 20  # a 1M-doc corpus' padded doc axis
@@ -344,6 +359,65 @@ def check_strip_kernel(seg, n1: int, shapes, k: int = K, t_pad: int = 4,
     return rows
 
 
+def check_lanes_kernel(seg, n1: int, shapes, seed: int = 12):
+    """The strip kernel's all-lanes pass (``strip_lanes_blocks``) vs its
+    plain version on the card: the same kept (doc, score) set bit for
+    bit and the same counts, per [rows, lanes] shape over seeded block
+    tables of ``seg``. Returns per-shape dicts; raises on disagreement."""
+    import torch
+
+    from searchlite_tpu_torch.ops.strip_topk import (
+        strip_lanes_blocks,
+        strip_lanes_blocks_plain,
+    )
+
+    rng = np.random.default_rng(seed)
+    block_docs = torch.from_numpy(seg[0]).cuda()
+    block_imps = torch.from_numpy(seg[1]).cuda()
+    sent = torch.tensor([seg[0].shape[0] - 1, n1 - 1], dtype=torch.int32,
+                        device="cuda")
+    rows = []
+    for B, L in shapes:
+        nblk = L // 128
+        bstart_np, bcnt_np, w_np = make_rows(rng, seg, B, 4, nblk, 2)
+        args = (block_docs, block_imps, torch.from_numpy(bstart_np).cuda(),
+                torch.from_numpy(bcnt_np).cuda(),
+                torch.from_numpy(w_np).cuda(), sent)
+        kw = dict(nblk=nblk, log2_run=2)
+        ks, kd, kc = strip_lanes_blocks(*args, **kw)
+        ps, pd, pc = strip_lanes_blocks_plain(*args, **kw)
+        torch.cuda.synchronize()
+        ks, kd, kc = ks.cpu().numpy(), kd.cpu().numpy(), kc.cpu().numpy()
+        ps, pd, pc = ps.cpu().numpy(), pd.cpu().numpy(), pc.cpu().numpy()
+        name = f"[{B}, {L}]"
+        if not np.array_equal(kc, pc):
+            raise AssertionError(f"strip_lanes {name}: counts differ")
+        for b in range(B):
+            got = {int(d): int(x) for d, x in zip(
+                kd[b][np.isfinite(ks[b])], ks[b][np.isfinite(ks[b])]
+                .view(np.int32))}
+            want = {int(d): int(x) for d, x in zip(
+                pd[b][np.isfinite(ps[b])], ps[b][np.isfinite(ps[b])]
+                .view(np.int32))}
+            if got != want or len(got) != int(kc[b]):
+                raise AssertionError(f"strip_lanes {name}: the kept "
+                                     "(doc, score) sets differ")
+        t_kern, t_plain = time_pair(lambda: strip_lanes_blocks(*args, **kw),
+                                    lambda: strip_lanes_blocks_plain(*args,
+                                                                     **kw),
+                                    20)
+        # the output: one 8-byte key a lane of the kernel's tiles
+        bms, by = bound_ms(*strip_work(bstart_np, bcnt_np, ks.shape[1]))
+        row = {"rows": B, "lanes": L, "kept": int(kc.sum()), "ms": t_kern,
+               "plain_ms": t_plain, "bound_ms": bms, "bound_by": by,
+               "max_abs_err": 0.0}
+        log(f"strip_lanes {name}: {row['kept']} kept (doc, score) pairs "
+            f"bit-identical, counts equal; kernel {t_kern:.4f} ms, plain "
+            f"{t_plain:.4f} ms, bound {bms:.4f} ms ({by})")
+        rows.append(row)
+    return rows
+
+
 def fused_inputs(g, Q, R, S, N, n_filters):
     """Seeded operands on the card shaped like a batch's: each query has
     4 dense-row terms and 2 scattered ones (idf-like weights 1-5), M
@@ -471,6 +545,7 @@ class Counts:
         from searchlite_tpu_torch.ops import fused_topk, strip_topk
 
         self.counts = {"strip_topk": strip_topk.COUNTS,
+                       "strip_lanes": strip_topk.LANES_COUNTS,
                        "fused_topk": fused_topk.COUNTS}
         self.gathers = strip_topk.GATHER_CALLS
 
@@ -630,7 +705,7 @@ def run_under_budget(reader, counts):
         ("b256 filtered", queries, filters, K),
         ("b32 k=2000", queries[:32], None, 2000),
     ]
-    total = {"strip_topk": 0, "fused_topk": 0}
+    total = {"strip_topk": 0, "strip_lanes": 0, "fused_topk": 0}
     records = []
     for name, qs, fs, limit in phases:
         reader.search_batch(qs, limit=limit, filters=fs)  # warm
@@ -669,6 +744,249 @@ def run_under_budget(reader, counts):
     if total["strip_topk"] <= 0 or total["fused_topk"] <= 0:
         raise AssertionError("the under-budget route missed a kernel")
     return total, records
+
+
+def p50(values) -> float:
+    return float(np.percentile(np.asarray(values, dtype=np.float64), 50))
+
+
+def hit_pairs(res):
+    return [(h.doc_id, h.score) for h in res.hits]
+
+
+def timed_search(reader, req):
+    """(result, ms) of one search() call, the card drained around it."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = reader.search(dict(req))
+    torch.cuda.synchronize()
+    return res, (time.perf_counter() - t0) * 1000
+
+
+def check_topk_vs(scores, cand, got, count, what: str, limit: int):
+    """The hits ``got`` [(doc_id, score)] and match count against oracle
+    ``scores`` [n] over ``cand`` [n], the docs the request matches
+    (computed on the host): every score within the f32_strict tolerance,
+    no better match left out, the count and the hit count exact."""
+    if count != int(cand.sum()):
+        raise AssertionError(f"{what}: count {count}, oracle "
+                             f"{int(cand.sum())}")
+    if len(got) != min(limit, count):
+        raise AssertionError(f"{what}: {len(got)} hits")
+    ids = [int(d) for d, _ in got]
+    for d, s in got:
+        ref = float(scores[int(d)])
+        if not cand[int(d)] or abs(s - ref) > ATOL + RTOL * abs(ref):
+            raise AssertionError(f"{what}: doc {d} scores {s}, oracle {ref}")
+    if ids:
+        floor = min(float(scores[i]) for i in ids)
+        rest = cand.copy()
+        rest[ids] = False
+        best_out = float(scores[rest].max()) if rest.any() else 0.0
+        if best_out > floor + ATOL + RTOL * abs(best_out):
+            raise AssertionError(f"{what}: a better doc was left out")
+
+
+def term_docs(reader, token: str) -> np.ndarray:
+    seg = reader.segments[0]
+    docs, _tfs = seg.postings.term_postings(seg.terms.get(f"body:{token}"))
+    return docs
+
+
+def phrase_docs(reader, first: str, second: str) -> np.ndarray:
+    """Docs holding ``second`` right after ``first``, from the postings'
+    positions."""
+    seg = reader.segments[0]
+    postings = seg.postings
+    ta = seg.terms.get(f"body:{first}")
+    tb = seg.terms.get(f"body:{second}")
+    after = {d: set(postings.positions(tb, i).tolist())
+             for i, d in enumerate(postings.term_postings(tb)[0].tolist())}
+    return np.asarray(sorted(
+        d for i, d in enumerate(postings.term_postings(ta)[0].tolist())
+        if d in after and any(p + 1 in after[d]
+                              for p in postings.positions(ta, i).tolist())),
+        dtype=np.int64)
+
+
+def run_singles(reader, counts):
+    """Path c, part 1: bench.py's 9 single queries as default requests
+    (execution wand, limit 10) on the dense executor. Returns (launches,
+    p50 ms)."""
+    import bench
+
+    queries = bench.build_queries()[0][:9]
+    reqs = [{"query": q, "limit": K} for q in queries]
+    for req in reqs:
+        reader.search(dict(req))  # warm
+    before = dict(reader.single_routes)
+    counts.reset()
+    results, times = [], []
+    for req in reqs:
+        res, ms = timed_search(reader, req)
+        results.append(hit_pairs(res))
+        times.append(ms)
+    launches, plain = counts.read()
+    routes = {k: reader.single_routes[k] - before[k] for k in before}
+    if plain != 0:
+        raise AssertionError("the single queries ran a plain version")
+    if routes["dense"] != len(reqs) or routes["sparse_plain"] \
+            or routes["sparse_split"]:
+        raise AssertionError(f"the default singles took routes {routes}")
+    if not bench.verify_vs_oracle(reader, queries, results):
+        raise AssertionError("a default single disagrees with the oracle")
+    ms50 = p50(times)
+    log(f"singles: {len(reqs)} default requests oracle-verified "
+        f"(f32_strict) on the dense executor; routes {routes}; launches "
+        f"{launches}; p50 {ms50:.3f} ms (min {min(times):.3f}, max "
+        f"{max(times):.3f}) on {card_line()} (information, not a benchmark)")
+    return launches, ms50
+
+
+def run_structured(reader, counts):
+    """Path c, part 2: the structured request set, each against an oracle
+    with host-computed masks. Returns launches."""
+    import bench
+    from searchlite_tpu_torch.api.types import Filter
+    from searchlite_tpu_torch.query.filters import compute_filters_mask
+
+    seg = reader.segments[0]
+    n = seg.doc_count
+    bucket = np.arange(n) % 16
+    counts.reset()
+    # a bool with must / must_not and the bucket filter
+    filt = {"I64Range": {"field": "bucket", "min": 2, "max": 9}}
+    res = reader.search({"query": {
+        "type": "bool",
+        "must": [{"type": "term", "field": "body", "value": "tok57"}],
+        "must_not": [{"type": "term", "field": "body", "value": "tok12"}],
+        "filter": [filt]}, "limit": K})
+    scores = bench._oracle_scores(reader, "tok57")
+    cand = compute_filters_mask(seg.fast, [Filter.from_json(filt)]) \
+        & (scores > 0)
+    cand[term_docs(reader, "tok12")] = False
+    check_topk_vs(scores, cand, hit_pairs(res), res.total_hits_estimate,
+                  "bool", K)
+    # a phrase: a filter-only match (score 0), so its first docs ascending
+    res = reader.search({"query": {"type": "phrase", "field": "body",
+                                   "terms": ["tok40", "tok41"]},
+                         "limit": K})
+    phrase = phrase_docs(reader, "tok40", "tok41")
+    if res.total_hits_estimate != len(phrase) or \
+            [h.doc_id for h in res.hits] != [str(d) for d in phrase[:K]] \
+            or any(h.score != 0.0 for h in res.hits):
+        raise AssertionError("phrase: hits differ from the positions")
+    # a function_score over bucket: BM25 x log1p(bucket / 2); bucket 0
+    # docs still match, at score 0
+    res = reader.search({"query": {
+        "type": "function_score",
+        "query": {"type": "term", "field": "body", "value": "tok33"},
+        "functions": [{"type": "field_value_factor", "field": "bucket",
+                       "factor": 0.5, "modifier": "log1p"}],
+        "boost_mode": "multiply"}, "limit": K})
+    base = bench._oracle_scores(reader, "tok33")
+    fvf = np.log1p(np.float32(0.5) * bucket.astype(np.float32))
+    check_topk_vs((base * fvf).astype(np.float32), base > 0,
+                  hit_pairs(res), res.total_hits_estimate,
+                  "function_score", K)
+    # a field sort drained through search_scroll: every match, in
+    # (bucket, doc) order
+    pages = reader.search_scroll(
+        {"query": "tok333 tok444", "limit": 50,
+         "sort": [{"field": "bucket", "order": "asc"}]}, block_docs=2000)
+    got = [h.doc_id for p in pages for h in p.hits]
+    docs = np.flatnonzero(bench._oracle_scores(reader, "tok333 tok444") > 0)
+    want = [str(d) for d in docs[np.lexsort((docs, bucket[docs]))]]
+    if got != want or pages[0].total_hits_estimate != len(want):
+        raise AssertionError(f"scroll: {len(got)} hits, want {len(want)} "
+                             "in (bucket, doc) order")
+    launches, plain = counts.read()
+    if plain != 0:
+        raise AssertionError("the structured set ran a plain version")
+    log(f"structured: bool + filter, phrase ({len(phrase)} docs), "
+        f"function_score, field sort drained through search_scroll "
+        f"({len(pages)} pages, {len(got)} hits) agree with the oracle and "
+        f"the host masks; launches {launches}")
+    return launches
+
+
+def split_queries(seed: int = 13, n: int = 16):
+    """Queries holding one or two of the head terms tok0-tok3 beside
+    mid-frequency terms."""
+    import random
+
+    rng = random.Random(seed)
+    out = []
+    for i in range(n):
+        heads = rng.sample(["tok0", "tok1", "tok2", "tok3"], 1 + i % 2)
+        mids = [f"tok{rng.randint(60, 3000)}" for _ in range(3 - i % 2)]
+        out.append(" ".join(heads + mids))
+    return out
+
+
+def run_sparse_singles(reader, counts):
+    """Path c, part 3: the sparse single routes at this corpus size
+    (``SEARCHLITE_SINGLE_SPARSE_MIN_DOCS=0``). Returns (launches, per
+    route {"n", "launches", "p50_ms"})."""
+    import bench
+
+    queries = bench.build_queries()[0][9:73] + split_queries()
+    os.environ["SEARCHLITE_SINGLE_SPARSE_MIN_DOCS"] = "0"
+    try:
+        for q in queries:
+            reader.search({"query": q, "limit": K})  # warm
+        counts.reset()
+        per_route: dict = {}
+        results = []
+        for q in queries:
+            before = dict(reader.single_routes)
+            launches0, _ = counts.read()
+            res, ms = timed_search(reader, {"query": q, "limit": K})
+            launches1, _ = counts.read()
+            delta = {k: reader.single_routes[k] - before[k]
+                     for k in before}
+            route = ("split_fallthrough" if delta["split_fallthrough"]
+                     else "sparse_split" if delta["sparse_split"]
+                     else "sparse_plain" if delta["sparse_plain"]
+                     else "dense")
+            rec = per_route.setdefault(route, {"n": 0, "strip_topk": 0,
+                                               "strip_lanes": 0, "ms": []})
+            rec["n"] += 1
+            for kname in ("strip_topk", "strip_lanes"):
+                rec[kname] += launches1[kname] - launches0[kname]
+            rec["ms"].append(ms)
+            results.append(hit_pairs(res))
+            heavy = sum(t in ("tok0", "tok1", "tok2", "tok3")
+                        for t in q.split())
+            oracle = int((bench._oracle_scores(reader, q) > 0).sum())
+            count = res.total_hits_estimate
+            exact = route != "sparse_split" or heavy <= 1
+            if (count != oracle) if exact else (count > oracle):
+                raise AssertionError(f"{q!r} ({route}): count {count}, "
+                                     f"oracle {oracle}")
+        launches, plain = counts.read()
+    finally:
+        del os.environ["SEARCHLITE_SINGLE_SPARSE_MIN_DOCS"]
+    if not bench.verify_vs_oracle(reader, queries, results):
+        raise AssertionError("a sparse single disagrees with the oracle")
+    if plain != 0:
+        raise AssertionError("the sparse singles ran a plain version")
+    if launches["strip_topk"] <= 0 or launches["strip_lanes"] <= 0:
+        raise AssertionError("the sparse singles missed a strip kernel pass")
+    if "sparse_plain" not in per_route or "sparse_split" not in per_route:
+        raise AssertionError(f"routes taken: {sorted(per_route)}")
+    for route, rec in sorted(per_route.items()):
+        rec["p50_ms"] = p50(rec.pop("ms"))
+        log(f"sparse singles, route {route}: {rec['n']} queries, strip "
+            f"launches {rec['strip_topk']} top-k + {rec['strip_lanes']} "
+            f"all-lanes, p50 {rec['p50_ms']:.3f} ms on {card_line()} "
+            "(information, not a benchmark)")
+    log(f"sparse singles: {len(queries)} queries oracle-verified "
+        f"(f32_strict, counts exact or a lower bound with two head terms); "
+        f"launches {launches}, plain calls {plain}, no strip gathered")
+    return launches, per_route
 
 
 def main() -> int:
@@ -714,6 +1032,7 @@ def main() -> int:
                                          seed=sd, n_big=tp // 2)
     if max(r["multi"] for r in strip_rows) < 4:
         raise AssertionError("no strip row held a doc in 4 slots")
+    lanes_rows = check_lanes_kernel(seg, N1, LANES_SHAPES)
     fused_rows = check_fused_kernel()
 
     index = build_index()
@@ -731,6 +1050,11 @@ def main() -> int:
     for rec in records:
         log(f"under-budget {rec['name']}: {rec['ms']:.2f} ms on "
             f"{card_line()} (information, not a benchmark)")
+    single_launches, _p50 = run_singles(reader, counts)
+    struct_launches = run_structured(reader, counts)
+    sparse_launches, _routes = run_sparse_singles(reader, counts)
+    search_launches = {k: single_launches[k] + struct_launches[k]
+                       + sparse_launches[k] for k in single_launches}
     for blocked in ("jax", "searchlite_tpu"):
         if sys.modules.get(blocked) is not None:
             raise AssertionError(f"{blocked} was imported")
@@ -741,7 +1065,7 @@ def main() -> int:
         "source": "searchlite_tpu_torch/csrc/strip_topk.cu",
         "replaces": "searchlite_tpu/ops/pallas_strip.py:157",
         "launches": stream_launches["strip_topk"]
-        + budget_launches["strip_topk"],
+        + budget_launches["strip_topk"] + search_launches["strip_topk"],
         "max_abs_err": max(r["max_abs_err"] for r in stream_rows),
         # one coalesced 3,072-query launch set: the four stream tiers
         "ms": sum(r["ms"] for r in stream_rows),
@@ -751,12 +1075,25 @@ def main() -> int:
                                    for r in stream_rows) else "operations",
         "library_ms": None,  # no single PyTorch call computes it
     }, {
+        "name": "strip_lanes",
+        "route": "cuda",
+        "source": "searchlite_tpu_torch/csrc/strip_topk.cu",
+        "replaces": "searchlite_tpu/ops/pallas_strip.py:157",
+        "launches": search_launches["strip_lanes"],
+        "max_abs_err": 0.0,
+        # the widest single-query split strip: 1 x 65,536 lanes
+        "ms": lanes_rows[-1]["ms"],
+        "plain_ms": lanes_rows[-1]["plain_ms"],
+        "bound_ms": lanes_rows[-1]["bound_ms"],
+        "bound_by": lanes_rows[-1]["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes it
+    }, {
         "name": "fused_topk",
         "route": "cuda",
         "source": "searchlite_tpu_torch/csrc/fused_topk.cu",
         "replaces": "searchlite_tpu/ops/pallas_topk.py:32",
         "launches": stream_launches["fused_topk"]
-        + budget_launches["fused_topk"],
+        + budget_launches["fused_topk"] + search_launches["fused_topk"],
         "max_abs_err": max(r["max_abs_err"] for r in fused_rows),
         # the filtered b256 batch: every row dense
         "ms": main_fused["ms"],

@@ -1,9 +1,11 @@
 """searchlite_tpu_torch: the PyTorch and CUDA port of searchlite_tpu.
 
-The batched BM25 routes run on torch tensors, with hand-written Hopper
-kernels for the candidate-strip core (``ops/strip_topk.py``,
-``csrc/strip_topk.cu``) and the fused dense score + mask + top-k
-(``ops/fused_topk.py``, ``csrc/fused_topk.cu``). The package keeps its own
+Single-query ``search()`` (the dense compiled executor,
+``ops/score.py``, and the sparse single routes) and the batched BM25
+routes run on torch tensors, with hand-written Hopper kernels for the
+candidate-strip core (``ops/strip_topk.py``, ``csrc/strip_topk.cu``) and
+the fused dense score + mask + top-k (``ops/fused_topk.py``,
+``csrc/fused_topk.cu``). The package keeps its own
 copies of the host layers it needs (storage, index, analysis, query, the
 native ingest and query prep, the numpy partitions) under the same paths
 as in ``searchlite_tpu``; it imports neither JAX nor ``searchlite_tpu``.
@@ -12,6 +14,7 @@ Both packages read and write the same index directories.
     from searchlite_tpu_torch.index import Index
     reader = Index.open(options).reader()      # on the card
     # or: IndexReader(index), IndexReader(index, device="cpu")
+    reader.search({"query": "rust systems", "limit": 10})
 """
 
 __version__ = "0.1.0"

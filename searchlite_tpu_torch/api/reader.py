@@ -1,9 +1,49 @@
-"""IndexReader: batched BM25 search over torch tensors.
+"""IndexReader: BM25 search over torch tensors.
 
-The batched half of ``searchlite_tpu/api/reader.py`` (``search_batch`` /
-``search_batch_many`` with ``execution="bm25"``), on one torch device
-(the card unless the caller asks for the CPU), routed as the JAX reader routes: per segment, the dense-M
-estimate ``(s_pad + Q) * n1 * 4`` against ``SEARCHLITE_M_BUDGET_BYTES``.
+The port of ``searchlite_tpu/api/reader.py`` on one torch device (the
+card unless the caller asks for the CPU): single-query ``search()`` /
+``search_scroll()``, and the batched ``search_batch`` /
+``search_batch_many`` with ``execution="bm25"``.
+
+**Single queries** (``search``, JAX ``reader.py:810-1373``) run the
+request surface of the JAX reader -- bool / dis_max / query_string
+matchers, phrases, filters, function_score, rank_feature, script_score,
+field sort, cursors, collapse, rescore, explain, highlight, suggest --
+routed per segment as the JAX reader routes them:
+
+1. plain OR-of-terms requests on segments of at least
+   ``SEARCHLITE_SINGLE_SPARSE_MIN_DOCS`` docs try the sparse single route
+   (``_try_sparse_single``): the query's own posting blocks through the
+   strip kernel, or the single-query term split (light terms on the
+   strip, head terms by point lookup, a soundness certificate; an
+   unsound certificate falls through to 2);
+2. everything else runs the dense compiled executor
+   (``ops/score.py::CompiledQuery.execute``): M from the query's blocks,
+   matmuls, the matcher and score trees, masks, cursor skip, count and a
+   (score desc, doc asc) top-k;
+3. one device-to-host copy for every segment, then the host phase in
+   segment order (sort keys, cursors, collapse, rescore, hits).
+
+Deliberate differences from the JAX reader (ROADMAP.md queue 3):
+
+- where the JAX reader defers a segment to the doc-tile pruned jobs
+  (``execution`` wand/bmw, a plain score-desc top-k and at least
+  ``SEARCHLITE_PRUNE_MIN_POSTINGS`` postings), the port runs the dense
+  executor: exact, the same top-k, an exact count (>= the pruned
+  estimate); the profile reports ``pruning_simulated: true``;
+- segments whose dense M is over its budget (``s_pad * n1 * 4`` past
+  ``SEARCHLITE_M_BUDGET_BYTES``, or past int32 indexing), which the JAX
+  reader scores with the chunked tile executor, raise
+  ``NotImplementedError`` naming ``ops/tiles.py``; so do requests with
+  ``aggs``, vector clauses or ``mesh``, each naming its ROADMAP item.
+
+``single_routes`` counts segments per single-query route: ``dense``,
+``sparse_plain``, ``sparse_split`` and ``split_fallthrough`` (a split
+whose certificate failed; the segment then ran dense too).
+
+**Batches** (``search_batch_many``) are routed per segment by the
+dense-M estimate ``(s_pad + Q) * n1 * 4`` against
+``SEARCHLITE_M_BUDGET_BYTES``.
 
 Under the budget (``_launch_batch_segment``), with per-query filters and
 any k up to the doc axis:
@@ -28,28 +68,51 @@ strips holding every term. Filtered or k > 1024 batches over the budget
 need ``_search_batch_sharded``, which is not ported yet.
 
 Every route is exact, so results match the JAX reader whichever route it
-took (scores to f32 reassociation, divergence D10). ``wand``/``bmw``,
-``mesh`` and single-query ``search()`` are not ported yet and raise
-``NotImplementedError``.
+took (scores to f32 reassociation, divergence D10). Batched ``wand``/
+``bmw`` and ``mesh`` are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
-from typing import Optional
+import re
+import threading
+import time
+from dataclasses import dataclass, replace
+from typing import Any, Optional
 
 import numpy as np
 import torch
 
-from searchlite_tpu_torch.api.types import Filter
-from searchlite_tpu_torch.errors import QueryError, StorageError
+from searchlite_tpu_torch.api.types import (
+    Filter,
+    FuzzyOptions,
+    Hit,
+    QueryNode,
+    SearchRequest,
+    SearchResult,
+)
+from searchlite_tpu_torch.errors import CursorError, QueryError, StorageError
+from searchlite_tpu_torch.index.highlight import (
+    HighlightOptions,
+    highlight_fragments,
+    make_snippet,
+)
+from searchlite_tpu_torch.models.bm25 import idf as bm25_idf
+from searchlite_tpu_torch.ops.score import CompiledQuery
+from searchlite_tpu_torch.query.phrase import matches_phrase
+from searchlite_tpu_torch.query.planner import QueryPlan, build_query_plan
+from searchlite_tpu_torch.query.sort import SortKey, SortPlan
 from searchlite_tpu_torch.native import get_results_mod
 from searchlite_tpu_torch.ops.impact import (
+    build_block_tables,
     build_impact_batch,
     build_impact_batch_native,
     ensure_dense_tables,
     next_pow2,
+    pow15_bucket,
     split_impact_batch,
     subset_impact_batch,
 )
@@ -61,6 +124,7 @@ from searchlite_tpu_torch.ops.sparse import (
 )
 from searchlite_tpu_torch.query.filters import (
     compute_filters_mask,
+    passes_filter,
     validate_filter,
 )
 from searchlite_tpu_torch.query.parser import parse_query
@@ -73,18 +137,183 @@ from searchlite_tpu_torch.ops.sparse import (
     sparse_candidate_scorer,
     sparse_candidate_scorer_packed,
     sparse_candidate_scorer_split,
+    sparse_single_split_scorer,
 )
 
 # the strip route's own top-k cap (JAX: reader.py::_try_sparse_candidates)
 MAX_STRIP_K = 1024
 # int32 indexing bound of the dense M scatter (JAX: reader.py)
 FLAT_INDEX_LIMIT = 2**31
+MAX_CANDIDATE_SIZE = 20_000
+MAX_CURSOR_ADVANCE = 50_000
+MAX_SUGGEST_CANDIDATES = 256
+CURSOR_VERSION = 3
+
+# compiled plans, shared by every reader (commits reopen readers), keyed
+# by plan structure + schema fingerprint (JAX ``_GLOBAL_COMPILED``)
+_GLOBAL_COMPILED: dict[str, CompiledQuery] = {}
+_GLOBAL_LOCK = threading.Lock()
 
 
 def _not_ported(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported to searchlite_tpu_torch yet "
         f"(ROADMAP.md queue 1: {item})")
+
+
+@dataclass
+class QualifiedTerm:
+    field: str
+    term: str
+    key: str
+    weight: float
+    leaf: int
+
+
+@dataclass
+class RankedHit:
+    key: SortKey
+    score: float
+    vector_score: Optional[float] = None
+    explanation: Optional[dict] = None
+
+
+def distance_weight(distance: int) -> float:
+    return 1.0 / (distance + 1.0)
+
+
+def bounded_levenshtein(a: str, b: str, max_edits: int) -> Optional[int]:
+    la, lb = len(a), len(b)
+    if abs(la - lb) > max_edits:
+        return None
+    if la == 0:
+        return lb if lb <= max_edits else None
+    if lb == 0:
+        return la if la <= max_edits else None
+    prev = list(range(lb + 1))
+    for i, ca in enumerate(a):
+        curr = [i + 1] + [0] * lb
+        row_min = curr[0]
+        for j, cb in enumerate(b):
+            cost = 0 if ca == cb else 1
+            val = min(prev[j + 1] + 1, curr[j] + 1, prev[j] + cost)
+            curr[j + 1] = val
+            row_min = min(row_min, val)
+        if row_min > max_edits:
+            return None
+        prev = curr
+    return prev[lb] if prev[lb] <= max_edits else None
+
+
+def build_wildcard_regex(pattern: str) -> re.Pattern:
+    buf = "^"
+    for ch in pattern:
+        if ch == "*":
+            buf += ".*"
+        elif ch == "?":
+            buf += "."
+        else:
+            buf += re.escape(ch)
+    buf += "$"
+    try:
+        return re.compile(buf)
+    except re.error as e:
+        raise QueryError(f"invalid wildcard `{pattern}`: {e}") from e
+
+
+def wildcard_literal_prefix(pattern: str) -> str:
+    return re.split(r"[*?]", pattern, maxsplit=1)[0]
+
+
+def regex_literal_prefix(pattern: str) -> str:
+    prefix = []
+    escaped = False
+    for ch in pattern:
+        if escaped:
+            if ch == "\\":
+                prefix.append(ch)
+                escaped = False
+                continue
+            if ch in "dDwWsSbBpP":
+                break
+            prefix.append(ch)
+            escaped = False
+            continue
+        if ch == "\\":
+            escaped = True
+        elif ch == "^" and not prefix:
+            continue
+        elif ch in ".*+?()[]{}|$":
+            break
+        else:
+            prefix.append(ch)
+    return "".join(prefix)
+
+
+def ensure_keyword_fast(schema, field: str, context: str) -> None:
+    meta = schema.field_meta(field)
+    if meta is None or meta.kind != "keyword" or not meta.fast:
+        raise QueryError(
+            f"{context} field `{field}` must be a fast keyword field")
+
+
+# -- cursors -----------------------------------------------------------------
+
+def encode_cursor(generation: int, returned: int, key: SortKey,
+                  sort_plan: SortPlan, fast: bool) -> str:
+    payload = {
+        "v": CURSOR_VERSION,
+        "gen": generation,
+        "ret": returned,
+        "hash": sort_plan.hash,
+        "fast": fast,
+        "key": key.to_json(),
+    }
+    return json.dumps(payload, separators=(",", ":")).encode().hex()
+
+
+def decode_cursor(raw: str, generation: int, sort_plan: SortPlan,
+                  fast: bool) -> dict:
+    try:
+        payload = json.loads(bytes.fromhex(raw))
+    except (ValueError, json.JSONDecodeError) as e:
+        raise CursorError("invalid cursor") from e
+    if not isinstance(payload, dict) or payload.get("v") != CURSOR_VERSION:
+        raise CursorError("invalid cursor version")
+    if payload.get("gen") != generation:
+        raise CursorError("cursor is stale: index has changed")
+    if payload.get("hash") != sort_plan.hash:
+        raise CursorError("cursor does not match the requested sort")
+    if bool(payload.get("fast")) != fast:
+        raise CursorError("cursor does not match the requested sort")
+    try:
+        key = SortKey.from_json(payload["key"], sort_plan.orders)
+    except (KeyError, TypeError, ValueError) as e:
+        raise CursorError("invalid cursor") from e
+    returned = int(payload.get("ret", 0))
+    if returned > MAX_CURSOR_ADVANCE:
+        raise CursorError("cursor advanced past the pagination limit")
+    return {"key": key, "returned": returned}
+
+
+def _has_vector_clause(req) -> bool:
+    """Does the request hold a vector clause (``vector_query`` or a
+    ``vector`` node anywhere in its query tree)?"""
+    if req.vector_query is not None:
+        return True
+
+    def walk(node) -> bool:
+        if node.kind == "vector":
+            return True
+        p = node.params
+        children = [c for key in ("must", "should", "must_not")
+                    for c in p.get(key, [])]
+        children += list(p.get("queries", []))
+        if isinstance(p.get("query"), QueryNode):
+            children.append(p["query"])
+        return any(walk(c) for c in children)
+
+    return isinstance(req.query, QueryNode) and walk(req.query)
 
 
 class IndexReader:
@@ -130,13 +359,1366 @@ class IndexReader:
                 self.manifest = index.reload_manifest()
                 self.schema = self.manifest.schema
                 self.analysis = self.schema.build_analyzers()
+        self.generation = max(
+            (s.generation for s in self.manifest.segments), default=0)
+        self._schema_fingerprint = hashlib.sha256(
+            json.dumps(self.schema.to_json(),
+                       sort_keys=True).encode()).hexdigest()[:16]
         self._token_cache: dict = {}
         self._split_fallback_rows = 0
         self.route_rows = {"strip": 0, "split": 0, "dense": 0,
                            "fallback": 0}
+        self.single_routes = {"dense": 0, "sparse_plain": 0,
+                              "sparse_split": 0, "split_fallthrough": 0}
 
-    def search(self, *args, **kwargs):
-        raise _not_ported("single-query search()", "single-query search()")
+    # -- term expansion (host, over per-segment dictionaries) ----------------
+
+    def _expand_term_groups(self, groups, fuzzy: Optional[FuzzyOptions]
+                            ) -> tuple[list[QualifiedTerm], list[list[str]]]:
+        qualified: list[QualifiedTerm] = []
+        group_keys: list[list[str]] = []
+        for group in groups:
+            keys: list[str] = []
+            seen_keys: set[str] = set()
+            for fspec in group.fields:
+                target_leaf = (fspec.leaf if fspec.leaf is not None
+                               else group.leaf)
+                weight = group.boost * fspec.boost
+                kind = self.schema.field_kind(fspec.field)
+                if kind == "text":
+                    analyzer = self.analysis.search_analyzer(fspec.field)
+                    if analyzer is None:
+                        continue
+                    if group.expansion == "exact":
+                        tokens = [t.text for t in analyzer.analyze(group.term)]
+                    else:
+                        # patterns are never tokenized (analysis strips the
+                        # metacharacters that make them patterns); only
+                        # structure-preserving normalization applies
+                        tokens = [analyzer.normalize_pattern(group.term)]
+                    seen_tokens: set[str] = set()
+                    for token in tokens:
+                        if token in seen_tokens:
+                            continue
+                        seen_tokens.add(token)
+                        scored, expanded = self._expand_term_for_group(
+                            fspec.field, token, weight, group.score,
+                            target_leaf, fuzzy, group.expansion,
+                            group.max_expansions)
+                        if group.score:
+                            qualified.extend(scored)
+                        for key in expanded:
+                            if key not in seen_keys:
+                                seen_keys.add(key)
+                                keys.append(key)
+                elif kind == "keyword":
+                    term = group.term.lower()
+                    scored, expanded = self._expand_term_for_group(
+                        fspec.field, term, weight, group.score, target_leaf,
+                        fuzzy, group.expansion, group.max_expansions)
+                    if group.score:
+                        qualified.extend(scored)
+                    for key in expanded:
+                        if key not in seen_keys:
+                            seen_keys.add(key)
+                            keys.append(key)
+            group_keys.append(keys)
+        return qualified, group_keys
+
+    def _expand_term_for_group(self, field, term, boost, score, leaf, fuzzy,
+                               expansion, max_expansions):
+        key = f"{field}:{term}"
+        leaf_val = leaf if leaf is not None else 0
+        if expansion == "exact":
+            if not score or leaf is None:
+                return [], [key]
+            if fuzzy is None or min(fuzzy.max_edits, 2) == 0:
+                return ([QualifiedTerm(field, term, key, boost, leaf_val)],
+                        [key])
+            return self._expand_fuzzy(field, term, boost, leaf_val, fuzzy)
+        if max_expansions == 0:
+            return [], []
+        if expansion == "prefix":
+            matcher = None
+            literal = term
+        elif expansion == "wildcard":
+            matcher = build_wildcard_regex(term)
+            literal = wildcard_literal_prefix(term)
+        else:  # regex
+            try:
+                matcher = re.compile(f"^(?:{term})$")
+            except re.error as e:
+                raise QueryError(f"invalid regex `{term}`: {e}") from e
+            literal = regex_literal_prefix(term)
+        prefix_key = f"{field}:{literal}"
+        field_prefix_len = len(field) + 1
+        qualified, keys = [], []
+        seen: set[str] = set()
+        for seg in self.segments:
+            expanded = 0
+            for seg_key, _tid in seg.terms.iter_prefix(prefix_key):
+                if expanded >= max_expansions:
+                    break
+                if len(seg_key) <= field_prefix_len:
+                    continue
+                token = seg_key[field_prefix_len:]
+                if matcher is not None and not matcher.match(token):
+                    continue
+                if seg_key in seen:
+                    continue
+                seen.add(seg_key)
+                if score and leaf is not None:
+                    qualified.append(QualifiedTerm(
+                        field, token, seg_key, boost, leaf_val))
+                keys.append(seg_key)
+                expanded += 1
+        return qualified, keys
+
+    def _expand_fuzzy(self, field, term, boost, leaf, fuzzy: FuzzyOptions):
+        exact_key = f"{field}:{term}"
+        qualified = [QualifiedTerm(field, term, exact_key,
+                                   boost * distance_weight(0), leaf)]
+        keys = [exact_key]
+        term_len = len(term)
+        if term_len < fuzzy.min_length or fuzzy.max_expansions == 0:
+            return qualified, keys
+        max_edits = min(fuzzy.max_edits, 2)
+        prefix_len = min(fuzzy.prefix_length, term_len)
+        prefix_key = f"{field}:{term[:prefix_len]}"
+        field_prefix_len = len(field) + 1
+        seen = {exact_key}
+        expansions = 0
+        for seg in self.segments:
+            if expansions >= fuzzy.max_expansions:
+                break
+            for seg_key, _tid in seg.terms.iter_prefix(prefix_key):
+                if expansions >= fuzzy.max_expansions:
+                    break
+                if len(seg_key) <= field_prefix_len:
+                    continue
+                candidate = seg_key[field_prefix_len:]
+                if candidate == term:
+                    continue
+                if abs(len(candidate) - term_len) > max_edits:
+                    continue
+                distance = bounded_levenshtein(term, candidate, max_edits)
+                if distance is None or distance == 0:
+                    continue
+                if seg_key not in seen:
+                    seen.add(seg_key)
+                    qualified.append(QualifiedTerm(
+                        field, candidate, seg_key,
+                        boost * distance_weight(distance), leaf))
+                    keys.append(seg_key)
+                    expansions += 1
+        return qualified, keys
+
+    # -- per-segment dense inputs ---------------------------------------------
+
+    def _segment_query_args(self, dseg, qualified: list[QualifiedTerm],
+                            group_keys: list[list[str]],
+                            n_leaves: int, n_groups: int):
+        """The slot tables of the dense executor: one slot per distinct
+        present term key, its posting block range, and the leaf-weight /
+        leaf- and group-indicator matrices."""
+        seg = dseg.reader
+        postings = seg.postings
+        live = float(max(dseg.live_docs, 0))
+
+        slots: dict[str, int] = {}
+        slot_start: list[int] = []
+        slot_len: list[int] = []
+        slot_idf: list[float] = []
+        slot_bstart: list[int] = []
+        slot_bcnt: list[int] = []
+        slot_tids: list[int] = []
+
+        def get_slot(key: str):
+            s = slots.get(key)
+            if s is None:
+                tid = seg.terms.get(key)
+                if tid is None:
+                    return None
+                s = len(slot_start)
+                slots[key] = s
+                df = int(postings.term_df[tid])
+                slot_start.append(int(dseg.posting_base[tid]))
+                slot_len.append(df)
+                slot_idf.append(bm25_idf(float(df), live))
+                slot_bstart.append(int(postings.term_block_start[tid]))
+                slot_bcnt.append(int(postings.term_block_count[tid]))
+                slot_tids.append(int(tid))
+            return s
+
+        merged: dict[tuple[str, int], float] = {}
+        for qt in qualified:
+            merged[(qt.key, qt.leaf)] = \
+                merged.get((qt.key, qt.leaf), 0.0) + qt.weight
+
+        entries = []  # (slot, leaf, idf*weight)
+        postings_touched = 0
+        slot_weight: dict[int, float] = {}
+        for (key, leaf), weight in merged.items():
+            s = get_slot(key)
+            if s is None:
+                continue
+            entries.append((s, leaf, slot_idf[s] * weight))
+            slot_weight[s] = slot_weight.get(s, 0.0) + slot_idf[s] * weight
+            postings_touched += slot_len[s]
+        group_entries = []  # (slot, group)
+        for g, keys in enumerate(group_keys):
+            for key in keys:
+                s = get_slot(key)
+                if s is not None:
+                    group_entries.append((s, g))
+
+        s_pad = next_pow2(max(len(slot_start), 8))
+        blk_idx, slot_row, nb_pad = build_block_tables(
+            slot_bstart, slot_bcnt, sentinel_row=dseg.n_block_rows)
+        L = max(n_leaves, 1)
+        G = max(n_groups, 1)
+        out = {
+            "blk_idx": blk_idx,
+            "slot_row": slot_row,
+            "nb_pad": nb_pad,
+            "s_pad": s_pad,
+            "w_leaf": np.zeros((L, s_pad), dtype=np.float32),
+            "leaf_ind": np.zeros((L, s_pad), dtype=np.float32),
+            "group_ind": np.zeros((G, s_pad), dtype=np.float32),
+            "n_scored": len(entries),
+            "postings_touched": postings_touched,
+            "slot_keys": dict(slots),
+            "slot_weight": slot_weight,
+            "slot_tids": np.asarray(slot_tids, dtype=np.int64),
+            "n_slots": len(slot_start),
+        }
+        for s, leaf, w in entries:
+            out["w_leaf"][leaf, s] += w
+            out["leaf_ind"][leaf, s] = 1.0
+        for s, g in group_entries:
+            out["group_ind"][g, s] = 1.0
+        # a dense M past int32 indexing needs the chunked tile executor
+        out["overflow"] = s_pad * dseg.n1 + nb_pad * 128 >= 2**31
+        return out
+
+    def _segment_phrase_masks(self, seg, phrase_specs,
+                              n1: Optional[int] = None) -> np.ndarray:
+        # n1 = the device doc-axis width (dseg.n1, which may be
+        # bucket-padded past doc_count+1); host-only callers omit it
+        if n1 is None:
+            n1 = seg.doc_count + 1
+        masks = np.zeros((max(len(phrase_specs), 1), n1), dtype=bool)
+        for p_idx, spec in enumerate(phrase_specs):
+            for field in spec.fields:
+                if self.schema.field_kind(field) != "text":
+                    continue
+                analyzer = self.analysis.search_analyzer(field)
+                if analyzer is None:
+                    continue
+                tokens = analyzer.analyze(" ".join(spec.terms))
+                if not tokens:
+                    continue
+                # variants per position (synonyms share a position)
+                by_pos: dict[int, list[str]] = {}
+                for tok in tokens:
+                    by_pos.setdefault(tok.position, []).append(tok.text)
+                positions = [by_pos[p] for p in sorted(by_pos)]
+                # per position: doc -> merged sorted position array
+                per_pos_docs: list[dict[int, np.ndarray]] = []
+                ok = True
+                for variants in positions:
+                    docs_map: dict[int, list[np.ndarray]] = {}
+                    for text in variants:
+                        tid = seg.terms.get(f"{field}:{text}")
+                        if tid is None:
+                            continue
+                        docs, _tfs = seg.postings.term_postings(tid)
+                        for posting_idx, doc in enumerate(docs.tolist()):
+                            pos = seg.postings.positions(tid, posting_idx)
+                            docs_map.setdefault(doc, []).append(pos)
+                    if not docs_map:
+                        ok = False
+                        break
+                    per_pos_docs.append({
+                        doc: np.sort(np.concatenate(lists))
+                        for doc, lists in docs_map.items()
+                    })
+                if not ok or not per_pos_docs:
+                    continue
+                candidates = set(per_pos_docs[0])
+                for m in per_pos_docs[1:]:
+                    candidates &= set(m)
+                for doc in candidates:
+                    plists = [m[doc] for m in per_pos_docs]
+                    if matches_phrase(plists, spec.slop):
+                        masks[p_idx, doc] = True
+        return masks
+
+    def _segment_filter_masks(self, seg, filter_slots,
+                              n1: Optional[int] = None) -> np.ndarray:
+        if n1 is None:
+            n1 = seg.doc_count + 1
+        masks = np.zeros((max(len(filter_slots), 1), n1), dtype=bool)
+        for i, filters in enumerate(filter_slots):
+            masks[i, :seg.doc_count] = compute_filters_mask(
+                seg.fast, list(filters))
+        return masks
+
+    def _segment_columns(self, seg, columns: list[str],
+                         n1: Optional[int] = None):
+        if n1 is None:
+            n1 = seg.doc_count + 1
+        vals = np.zeros((max(len(columns), 1), n1), dtype=np.float32)
+        has = np.zeros((max(len(columns), 1), n1), dtype=bool)
+        for i, field in enumerate(columns):
+            col = seg.fast.column(field)
+            if col is None:
+                continue
+            present = np.diff(col.offsets) > 0
+            first_idx = col.offsets[:-1][present]
+            vals[i, :seg.doc_count][present] = \
+                col.values[first_idx].astype(np.float32)
+            has[i, :seg.doc_count] = present
+        return vals, has
+
+    # -- single-query entry points ------------------------------------------
+
+    def search_scroll(self, req, max_pages: Optional[int] = None,
+                      block_docs: int = 2000, mesh=None
+                      ) -> list[SearchResult]:
+        """Drain a paginated result stream in blocks: one pass fetches up
+        to ``block_docs`` hits, sliced on the host into pages of
+        ``req.limit``. The page and hit sequence is the one looping
+        :meth:`search` with ``next_cursor`` gives; each page carries an
+        exact ``next_cursor``. The drain ends when hits run out or at
+        ``max_pages``."""
+        if isinstance(req, dict):
+            req = SearchRequest.from_json(req)
+        if req.limit <= 0:
+            raise QueryError("search request must set limit > 0")
+        page_limit = req.limit
+        block = max(page_limit, min(block_docs, MAX_CANDIDATE_SIZE))
+        block -= block % page_limit or 0
+        sort_plan = SortPlan.from_request(self.schema, req.sort)
+        score_fast_path = (sort_plan.is_score_only()
+                           and sort_plan.primary_order() == "desc")
+        pages: list[SearchResult] = []
+        cursor = req.cursor
+        returned = 0
+        if cursor is not None:
+            returned = decode_cursor(cursor, self.generation, sort_plan,
+                                     score_fast_path)["returned"]
+        while max_pages is None or len(pages) < max_pages:
+            block_req = replace(req, limit=block, cursor=cursor,
+                                candidate_size=max(
+                                    req.candidate_size or 0, block))
+            res = self.search(block_req, mesh=mesh)
+            n_pages = -(-len(res.hits) // page_limit) if res.hits else 0
+            for p in range(n_pages):
+                lo = p * page_limit
+                page_hits = res.hits[lo:lo + page_limit]
+                last_in_block = lo + page_limit >= len(res.hits)
+                if last_in_block:
+                    next_cur = res.next_cursor
+                else:
+                    # exact per-page cursor: the key material the page
+                    # loop would encode (the page's last hit)
+                    last = page_hits[-1]
+                    next_cur = encode_cursor(
+                        self.generation,
+                        returned + lo + len(page_hits),
+                        last.sort_key, sort_plan, score_fast_path) \
+                        if last.sort_key is not None else None
+                pages.append(SearchResult(
+                    total_hits_estimate=res.total_hits_estimate,
+                    total_groups=res.total_groups,
+                    hits=page_hits,
+                    next_cursor=next_cur,
+                    aggregations=res.aggregations if p == 0 else {},
+                    suggest=res.suggest if p == 0 else {},
+                    profile=res.profile if p == 0 else None,
+                ))
+                if max_pages is not None and len(pages) >= max_pages:
+                    break
+            returned += len(res.hits)
+            cursor = res.next_cursor
+            if cursor is None or not res.hits:
+                break
+        return pages
+
+    def search(self, req, mesh=None) -> SearchResult:
+        """Execute one search request (a :class:`SearchRequest` or its
+        JSON dict) over every segment; see the module docstring for the
+        routes."""
+        if isinstance(req, dict):
+            req = SearchRequest.from_json(req)
+        if req.limit <= 0:
+            raise QueryError("search request must set limit > 0")
+        if not req.return_hits and req.cursor is not None:
+            raise QueryError(
+                "cursor is not supported when return_hits is false")
+        if req.collapse is not None:
+            ensure_keyword_fast(self.schema, req.collapse.field, "collapse")
+        if req.filter is not None:
+            validate_filter(self.schema, req.filter)
+        if mesh is not None:
+            raise _not_ported("mesh execution", "multi-GPU")
+        if req.aggs:
+            raise _not_ported("aggregations", "aggregations")
+        if _has_vector_clause(req):
+            raise _not_ported("vector clauses", "vector and hybrid")
+
+        sort_plan = SortPlan.from_request(self.schema, req.sort)
+        score_fast_path = (sort_plan.is_score_only()
+                           and sort_plan.primary_order() == "desc")
+        cursor_state = None
+        if req.cursor is not None:
+            cursor_state = decode_cursor(
+                req.cursor, self.generation, sort_plan, score_fast_path)
+        cursor_key = cursor_state["key"] if cursor_state else None
+        cursor_returned = cursor_state["returned"] if cursor_state else 0
+
+        default_fields = (req.fields if req.fields is not None
+                          else [f.name for f in self.schema.text_fields])
+        effective_limit = min(
+            max(req.candidate_size or req.limit, req.limit),
+            MAX_CANDIDATE_SIZE)
+        top_k = (effective_limit + 1) if req.return_hits else 0
+
+        plan = build_query_plan(req.query, default_fields)
+        compiled = self._compile(plan, self.options.bm25_k1,
+                                 self.options.bm25_b)
+        qualified, group_keys = self._expand_term_groups(
+            plan.term_groups, req.fuzzy)
+        highlight_terms: list[str] = []
+        seen_hl: set[str] = set()
+        for qt in qualified:
+            if qt.term not in seen_hl:
+                seen_hl.add(qt.term)
+                highlight_terms.append(qt.term)
+        highlight_phrases = self._phrase_term_map(plan.phrase_specs)
+
+        need_scores = sort_plan.uses_score() or compiled.needs_hook \
+            or req.explain
+        has_scored = bool(qualified)
+
+        start_time = time.monotonic()
+        all_hits: list[RankedHit] = []
+        total_matches = 0
+        saw_cursor = cursor_state is None
+        stats = {"scored_docs": 0, "candidates_examined": 0,
+                 "postings_advanced": 0}
+
+        # phase 1 -- launch: per-segment host prep and device work; nothing
+        # waits for the card until the one bulk fetch below (the sparse
+        # single route fetches its own small result to read its
+        # certificate)
+        needs_mask = not score_fast_path or req.collapse is not None
+        use_cursor = cursor_key is not None and score_fast_path
+        sparse_single_ok = (
+            score_fast_path and req.return_hits
+            and cursor_state is None and req.collapse is None
+            and not compiled.needs_hook and has_scored
+            and req.filter is None and not req.explain
+            and not plan.phrase_specs and not compiled.filter_slots
+            and plan.is_plain_or_sum()
+            and os.environ.get("SEARCHLITE_SINGLE_SPARSE", "1") != "0")
+        m_budget = int(os.environ.get("SEARCHLITE_M_BUDGET_BYTES",
+                                      2 * 1024**3))
+        pending = []  # (dseg, qargs, device tensors to fetch)
+        for dseg in self.device_segments:
+            seg = dseg.reader
+            if seg.doc_count == 0:
+                continue
+            qargs = self._segment_query_args(
+                dseg, qualified, group_keys, compiled.n_leaves,
+                compiled.n_groups)
+            k = min(max(top_k, 1), dseg.n1)
+            if sparse_single_ok:
+                sp = self._try_sparse_single(dseg, qargs, k)
+                if sp is not None:
+                    qargs["_sparse_pre"] = sp
+                    pending.append((dseg, qargs, []))
+                    continue
+            if qargs["overflow"] or qargs["s_pad"] * dseg.n1 * 4 > m_budget:
+                raise _not_ported(
+                    "single-query segments whose dense M is over "
+                    "SEARCHLITE_M_BUDGET_BYTES (the chunked tile executor)",
+                    "pruned execution, ops/tiles.py")
+            # where the JAX reader would run a doc-tile pruned job (wand/
+            # bmw, >= SEARCHLITE_PRUNE_MIN_POSTINGS postings), the dense
+            # executor runs: exact, the same top-k (ops/tiles.py is not
+            # ported)
+            phrase_masks = self._segment_phrase_masks(
+                seg, plan.phrase_specs, n1=dseg.n1)
+            filter_masks = self._segment_filter_masks(
+                seg, compiled.filter_slots, n1=dseg.n1)
+            col_vals, col_has = self._segment_columns(
+                seg, compiled.columns, n1=dseg.n1)
+            root_mask = np.ones(dseg.n1, dtype=bool)
+            if req.filter is not None:
+                root_mask[:seg.doc_count] = compute_filters_mask(
+                    seg.fast, [req.filter])
+                root_mask[seg.doc_count:] = False
+            if use_cursor:
+                cs = float(cursor_key.parts[0])
+                if dseg.ord < cursor_key.segment_ord:
+                    eq_mode, cdoc = 0, 0
+                elif dseg.ord == cursor_key.segment_ord:
+                    eq_mode, cdoc = 1, cursor_key.doc_id
+                else:
+                    eq_mode, cdoc = 2, 0
+            else:
+                cs, eq_mode, cdoc = 0.0, 2, 0
+            (top_scores, top_idx, match_count, final_mask, adjusted,
+             cursor_seen, _text_mask) = self._run_dense(
+                dseg, compiled, qargs, phrase_masks, filter_masks,
+                col_vals, col_has, root_mask, cs, eq_mode, cdoc, k=k,
+                has_scored=has_scored, need_scores=need_scores,
+                use_cursor=use_cursor)
+            self.single_routes["dense"] += 1
+            fetch = [top_scores, top_idx, match_count, cursor_seen]
+            if needs_mask:
+                fetch.append(final_mask)
+            if need_scores and not score_fast_path:
+                fetch.append(adjusted)
+            pending.append((dseg, qargs, fetch))
+
+        # one device-to-host copy for everything every segment needs
+        flat_vals = _fetch([t for _d, _q, fetch in pending for t in fetch])
+
+        # phase 2 -- host processing, in segment order
+        vals_cursor = 0
+        for dseg, qargs, fetch in pending:
+            seg = dseg.reader
+            fetched = flat_vals[vals_cursor:vals_cursor + len(fetch)]
+            vals_cursor += len(fetch)
+            mask_np = adjusted_np = None
+            if "_sparse_pre" in qargs:
+                top_scores_np, top_idx_np, match_count, real_postings = \
+                    qargs["_sparse_pre"]
+                cursor_seen = False
+                stats["postings_advanced"] += real_postings
+            else:
+                top_scores_np, top_idx_np, match_count, cursor_seen = \
+                    fetched[:4]
+                cursor = 4
+                if needs_mask:
+                    mask_np = np.array(fetched[cursor])[:seg.doc_count]
+                    cursor += 1
+                if need_scores and not score_fast_path:
+                    adjusted_np = fetched[cursor]
+                # postings telemetry: for wand/bmw the counterfactual
+                # postings a block-max pruned traversal would touch
+                if req.profile and req.execution in ("wand", "bmw") \
+                        and score_fast_path and req.return_hits:
+                    stats["postings_advanced"] += self._pruned_postings(
+                        dseg, qargs, top_scores_np, req.limit,
+                        req.execution)
+                else:
+                    stats["postings_advanced"] += \
+                        qargs["postings_touched"]
+
+            if use_cursor and bool(cursor_seen):
+                saw_cursor = True
+
+            if score_fast_path:
+                total_matches += int(match_count)
+                stats["scored_docs"] += int(match_count)
+                stats["candidates_examined"] += int(match_count)
+                if req.return_hits:
+                    valid = top_scores_np > -np.inf
+                    for score, doc in zip(top_scores_np[valid].tolist(),
+                                          top_idx_np[valid].tolist()):
+                        key = SortKey([float(score)], sort_plan.orders,
+                                      dseg.ord, int(doc))
+                        all_hits.append(RankedHit(key=key,
+                                                  score=float(score)))
+            else:
+                # general path: vectorized rank arrays over the matched
+                # set; SortKey objects built only for the top slice
+                matched = np.flatnonzero(mask_np)
+                if adjusted_np is not None and len(matched):
+                    matched_scores = adjusted_np[matched].astype(np.float64)
+                else:
+                    matched_scores = np.zeros(len(matched),
+                                              dtype=np.float64)
+                stats["scored_docs"] += len(matched)
+                stats["candidates_examined"] += len(matched)
+                ranks = sort_plan.rank_arrays(seg.fast, matched,
+                                              matched_scores)
+                if cursor_key is not None and len(matched):
+                    cr = sort_plan.cursor_ranks(cursor_key, seg.fast)
+                    gt = np.zeros(len(matched), dtype=bool)
+                    eq = np.ones(len(matched), dtype=bool)
+                    for rk, c in zip(ranks, cr):
+                        gt |= eq & (rk > c)
+                        eq &= rk == c
+                    if dseg.ord > cursor_key.segment_ord:
+                        tie_after = eq
+                    elif dseg.ord == cursor_key.segment_ord:
+                        tie_after = eq & (matched > cursor_key.doc_id)
+                        if bool((eq & (matched ==
+                                       cursor_key.doc_id)).any()):
+                            saw_cursor = True
+                    else:
+                        tie_after = np.zeros(len(matched), dtype=bool)
+                    keep = gt | tie_after
+                    mask_np[matched[~keep]] = False
+                    matched = matched[keep]
+                    matched_scores = matched_scores[keep]
+                    ranks = [r[keep] for r in ranks]
+                total_matches += len(matched)
+                if req.return_hits and len(matched):
+                    order = np.lexsort(
+                        tuple([matched.astype(np.float64)]
+                              + list(reversed(ranks))))
+                    top = order[:max(top_k, 1)]
+                    top_docs = matched[top]
+                    top_scores2 = matched_scores[top]
+                    keys = sort_plan.build_keys_bulk(
+                        seg.fast, top_docs, top_scores2, dseg.ord)
+                    all_hits.extend(
+                        RankedHit(key=key, score=float(s))
+                        for key, s in zip(keys, top_scores2.tolist()))
+
+        if not saw_cursor:
+            raise CursorError("stale or invalid cursor for this result set")
+
+        hits = all_hits
+        if req.return_hits:
+            hits.sort(key=lambda h: _KeyWrap(h.key))
+        search_ms = (time.monotonic() - start_time) * 1000.0
+
+        timings: dict[str, float] = {}
+        rescore_stats = {"scored_docs": 0, "candidates_examined": 0,
+                         "postings_advanced": 0}
+        if req.return_hits and req.rescore is not None:
+            t0 = time.monotonic()
+            self._rescore_hits(hits, req.rescore, default_fields, sort_plan,
+                               req, rescore_stats)
+            timings["rescore_ms"] = (time.monotonic() - t0) * 1000.0
+
+        if req.explain:
+            for h in hits:
+                if h.explanation is None:
+                    functions = []
+                    if compiled.needs_hook:
+                        functions = self._explain_functions(
+                            compiled, plan.score_tree,
+                            h.key.segment_ord, h.key.doc_id,
+                            plan=plan, group_keys=group_keys)
+                    h.explanation = {
+                        "base_score": h.score,
+                        "functions": functions,
+                        "rescore": None,
+                        "final_score": h.score,
+                    }
+                else:
+                    h.explanation["final_score"] = h.score
+
+        total_hits_value = total_matches + cursor_returned
+        total_groups = None
+        group_inner: list[list[RankedHit]] = []
+        if req.return_hits and req.collapse is not None:
+            groups = self._collapse_hits(hits, req.collapse, sort_plan)
+            total_groups = len(groups)
+            group_inner = [inner for _top, inner in groups]
+            hits = [top for top, _inner in groups]
+
+        next_cursor = None
+        out_hits: list[Hit] = []
+        if req.return_hits:
+            if len(hits) > req.limit:
+                last = hits[req.limit - 1]
+                returned = cursor_returned + req.limit
+                next_cursor = encode_cursor(
+                    self.generation, returned, last.key, sort_plan,
+                    score_fast_path)
+                hits = hits[:req.limit]
+                group_inner = group_inner[:req.limit]
+            for i, h in enumerate(hits):
+                hit = self._materialize_hit(h, req, highlight_terms,
+                                            highlight_phrases)
+                if hit is None:
+                    continue
+                if group_inner and i < len(group_inner) and group_inner[i]:
+                    inner_hits = [
+                        ih for rh in group_inner[i]
+                        if (ih := self._materialize_hit(
+                            rh, req, highlight_terms,
+                            highlight_phrases)) is not None
+                    ]
+                    if inner_hits:
+                        hit.inner_hits = inner_hits
+                out_hits.append(hit)
+
+        suggest = {}
+        if req.suggest:
+            suggest = self._execute_suggest(req.suggest)
+
+        profile = None
+        if req.profile:
+            timings["search_ms"] = search_ms
+            execution_stats = dict(stats)
+            if req.execution in ("wand", "bmw"):
+                # postings_advanced is the counterfactual model here (the
+                # doc-tile pruned path is not ported), so always simulated
+                execution_stats["pruning_simulated"] = True
+            profile = {
+                "execution": execution_stats,
+                "rescore": dict(rescore_stats) if req.rescore else None,
+                "timings": timings,
+            }
+
+        return SearchResult(
+            total_hits_estimate=total_hits_value,
+            total_groups=total_groups,
+            hits=out_hits,
+            next_cursor=next_cursor,
+            aggregations={},
+            suggest=suggest,
+            profile=profile,
+        )
+
+    def _run_dense(self, dseg, compiled, qargs, phrase_masks, filter_masks,
+                   col_vals, col_has, root_mask, cs: float, eq_mode: int,
+                   cdoc: int, *, k: int, has_scored: bool,
+                   need_scores: bool, use_cursor: bool):
+        """Upload one segment's query inputs and run the dense executor
+        (``CompiledQuery.execute``) on the segment's tensors."""
+        up = self._upload
+        return compiled.execute(
+            dseg.block_docs, dseg.block_impacts_live, dseg.deleted,
+            up(qargs["blk_idx"]), up(qargs["slot_row"]),
+            up(qargs["w_leaf"]), up(qargs["leaf_ind"]),
+            up(qargs["group_ind"]), up(phrase_masks), up(filter_masks),
+            up(col_vals), up(col_has), up(root_mask), cs, eq_mode, cdoc,
+            k=k, s_pad=qargs["s_pad"], has_scored_terms=has_scored,
+            need_scores=need_scores, use_cursor=use_cursor)
+
+    def _pruned_postings(self, dseg, qargs, top_scores_np,
+                         limit: int, strategy: str) -> int:
+        """Counterfactual block-max pruning telemetry (the reference's
+        wand/bmw counters): with the exact top-k threshold known, count
+        the postings a pruned traversal would still advance. wand uses
+        term-level upper bounds, bmw per-block upper bounds (block size
+        128)."""
+        seg = dseg.reader
+        postings = seg.postings
+        valid = top_scores_np[top_scores_np > -np.inf]
+        if len(valid) < limit:
+            return qargs["postings_touched"]
+        threshold = float(valid[min(limit, len(valid)) - 1])
+        slot_weight = qargs["slot_weight"]
+        slot_keys = qargs["slot_keys"]
+        term_ubs: dict[int, float] = {}
+        slot_blocks: dict[int, tuple[int, int, int]] = {}
+        for key, s in slot_keys.items():
+            w = slot_weight.get(s)
+            if w is None:
+                continue
+            tid = seg.terms.get(key)
+            if tid is None:
+                continue
+            start = int(postings.term_block_start[tid])
+            nb = int(postings.term_block_count[tid])
+            df = int(postings.term_df[tid])
+            slot_blocks[s] = (start, nb, df)
+            bub = dseg.block_max_impact[start:start + nb]
+            term_ubs[s] = float(bub.max() * w) if nb else 0.0
+        total_ub = sum(term_ubs.values())
+        advanced = 0
+        for s, (start, nb, df) in slot_blocks.items():
+            w = slot_weight[s]
+            others = total_ub - term_ubs[s]
+            if strategy == "wand":
+                if term_ubs[s] + others >= threshold:
+                    advanced += df
+                continue
+            bub = dseg.block_max_impact[start:start + nb] * w
+            survive = (bub + others) >= threshold
+            sizes = np.full(nb, 128, dtype=np.int64)
+            if nb:
+                sizes[-1] = df - 128 * (nb - 1)
+            advanced += int(sizes[survive].sum())
+        return advanced
+
+    def _try_sparse_single(self, dseg, qargs, k: int):
+        """One plain OR query through the strip kernel (JAX
+        ``_try_sparse_single``): a [1, t_pad] table of the query's posting
+        block ranges and summed weights, scored over its own candidate
+        strip. Exact under ``QueryPlan.is_plain_or_sum`` (a match is a
+        positive score; the count is the strip's). Past the strip cap, up
+        to ``SEARCHLITE_HEAVY_SLOTS`` head terms leave the strip for point
+        lookups (:func:`sparse_single_split_scorer`); an unsound
+        certificate falls through. Fetches its own result. Returns
+        (scores [k], ids [k], count, postings touched) as host values, or
+        None (the caller runs the dense executor)."""
+        mb_env = os.environ.get("SEARCHLITE_SINGLE_SPARSE_BLOCKS")
+        if mb_env is not None:
+            max_blocks = int(mb_env)
+        else:
+            # corpus-scaled strip cap, as the batched split route's
+            max_blocks = max(512, 2 * (dseg.n1 // 640))
+        if max_blocks <= 0 or k > MAX_STRIP_K:
+            return None
+        # corpus-size gate: at small n1 the dense executor answers as
+        # fast, and its sums run in the historical order (D10)
+        min_docs = int(os.environ.get(
+            "SEARCHLITE_SINGLE_SPARSE_MIN_DOCS", "1000000"))
+        if dseg.n1 < min_docs:
+            return None
+        n_slots = qargs["n_slots"]
+        if n_slots == 0:
+            return None
+        postings = dseg.reader.postings
+        tids = qargs["slot_tids"]
+        bstart = postings.term_block_start[tids].astype(np.int64)
+        bcnt = postings.term_block_count[tids].astype(np.int64)
+        total = int(bcnt.sum())
+        w = np.zeros(n_slots, dtype=np.float32)
+        for s, v in qargs["slot_weight"].items():
+            w[s] = v
+        if total == 0 or k > total * 128 or (w <= 0).any():
+            return None
+        if total > max_blocks:
+            return self._sparse_single_split(dseg, qargs, k, max_blocks,
+                                             tids, bstart, bcnt, w, total)
+        t_pad = next_pow2(max(n_slots, 2))
+        tbl = np.zeros((3, 1, t_pad), dtype=np.int32)
+        tbl[0, 0, :n_slots] = bstart
+        tbl[1, 0, :n_slots] = bcnt
+        tbl[2, 0, :n_slots] = w.view(np.int32)
+        ts, td, cnt = _fetch(list(sparse_candidate_scorer(
+            dseg.block_docs, dseg.block_impacts_live, self._upload(tbl),
+            dseg.sparse_sentinels, k=k, t_pad=t_pad,
+            nblk=pow15_bucket(total, minimum=16),
+            log2_run=max((t_pad - 1).bit_length(), 1), with_counts=True)))
+        self.single_routes["sparse_plain"] += 1
+        return ts[0], td[0], int(cnt[0]), qargs["postings_touched"]
+
+    def _sparse_single_split(self, dseg, qargs, k: int, max_blocks: int,
+                             tids, bstart, bcnt, w, total: int):
+        """The single-query term split (JAX ``_try_sparse_single``, past
+        the cap): the minimal set of largest over-cap terms (at most
+        ``SEARCHLITE_HEAVY_SLOTS``) leaves the strip. Counts: exact with
+        one heavy term (n_strip + live_df - overlap), a lower bound with
+        several (n_strip + max_h(live_df_h - overlap_h))."""
+        if os.environ.get("SEARCHLITE_TERM_SPLIT", "1") == "0":
+            return None
+        term_cap = int(os.environ.get(
+            "SEARCHLITE_HEAVY_TERM_BLOCKS",
+            str(max_blocks if max_blocks <= 512
+                else max(512, max_blocks // 16))))
+        h_max = int(os.environ.get("SEARCHLITE_HEAVY_SLOTS", "4"))
+        if int(bcnt.max()) <= term_cap:
+            return None
+        over = np.flatnonzero(bcnt > term_cap)
+        order = over[np.argsort(-bcnt[over], kind="stable")]
+        h_slots = []
+        light_total = total
+        for s in order:
+            if len(h_slots) >= h_max:
+                break
+            h_slots.append(int(s))
+            light_total -= int(bcnt[s])
+            if light_total <= max_blocks:
+                break
+        h_slots = np.asarray(h_slots, dtype=np.int64)
+        heavy = np.zeros(len(tids), dtype=bool)
+        heavy[h_slots] = True
+        if (light_total == 0 or light_total > max_blocks
+                or k > light_total * 128):
+            return None
+        h_tids = [int(tids[s]) for s in h_slots]
+        ub_ratio = float(os.environ.get("SEARCHLITE_SPLIT_UB_RATIO", "0.5"))
+        maximp = dseg.heavy_lookup_host(term_cap)["maximp"]
+        hub_sum = float((w[h_slots] * maximp[tids[h_slots]]).sum())
+        lmax = float((w[~heavy] * maximp[tids[~heavy]]).max())
+        if ub_ratio > 0 and hub_sum >= ub_ratio * lmax:
+            return None  # certificate unlikely: go dense
+        lt = int((~heavy).sum())
+        t_pad = next_pow2(max(lt, 2))
+        tbl = np.zeros((3, 1, t_pad), dtype=np.int32)
+        tbl[0, 0, :lt] = bstart[~heavy]
+        tbl[1, 0, :lt] = bcnt[~heavy]
+        tbl[2, 0, :lt] = w[~heavy].view(np.int32)
+        h_pad = next_pow2(max(len(h_slots), 1))
+        hvy = np.zeros((2, h_pad), dtype=np.int32)
+        hvy[0, :len(h_slots)] = h_tids
+        hvy[1, :len(h_slots)] = w[h_slots].view(np.int32)
+        hl = dseg.heavy_lookup(term_cap)
+        out = sparse_single_split_scorer(
+            dseg.block_docs, dseg.block_impacts_live, hl["tbl"], hl["base"],
+            hl["log2g"], dseg.sparse_tid_tbl, hl["maximp"],
+            self._upload(tbl), self._upload(hvy), dseg.sparse_sentinels,
+            k=k, t_pad=t_pad, nblk=pow15_bucket(light_total, minimum=16),
+            log2_run=max((t_pad - 1).bit_length(), 1))
+        ts, td, n_strip, overlap, sound = _fetch(list(out))
+        self.single_routes["sparse_split"] += 1
+        if not bool(sound[0]):
+            self.single_routes["split_fallthrough"] += 1
+            return None
+        ns = int(n_strip[0])
+        if len(h_slots) == 1:
+            cnt = ns + dseg.live_term_df(h_tids[0]) - int(overlap[0])
+        else:
+            cnt = ns + max(dseg.live_term_df(t) - int(overlap[i])
+                           for i, t in enumerate(h_tids))
+        return ts[0], td[0], cnt, qargs["postings_touched"]
+
+    def _compile(self, plan: QueryPlan, k1: float, b: float) -> CompiledQuery:
+        # cached by plan structure + schema fingerprint, process-wide
+        sig = repr((_plan_sig(plan), self._schema_fingerprint, k1, b))
+        with _GLOBAL_LOCK:
+            cq = _GLOBAL_COMPILED.get(sig)
+            if cq is None:
+                cq = CompiledQuery(plan, self.schema, k1, b)
+                _GLOBAL_COMPILED[sig] = cq
+            return cq
+
+    def _group_matches_doc(self, seg, keys, doc: int) -> bool:
+        """Does the doc contain any of the group's terms?"""
+        postings = seg.postings
+        for key in keys:
+            tid = seg.terms.get(key)
+            if tid is None:
+                continue
+            docs, _tfs = postings.term_postings(tid)
+            i = np.searchsorted(docs, doc)
+            if i < len(docs) and docs[i] == doc:
+                return True
+        return False
+
+    def _matcher_matches_host(self, matcher, seg, compiled,
+                              group_keys, phrase_masks, doc: int) -> bool:
+        """Host-side evaluation of the boolean matcher tree for ONE doc:
+        the explain path's counterpart of ``CompiledQuery._eval_matcher``."""
+        kind = matcher.kind
+        if kind == "match_all":
+            return True
+        if kind == "term":
+            return self._group_matches_doc(
+                seg, group_keys[matcher.payload], doc)
+        if kind == "phrase":
+            return bool(phrase_masks[matcher.payload, doc])
+        if kind == "query_string":
+            p = matcher.payload
+            if not p["term_groups"] and not p["phrase_groups"] \
+                    and not p["not_term_groups"]:
+                return False
+            for idx in p["not_term_groups"]:
+                if self._group_matches_doc(seg, group_keys[idx], doc):
+                    return False
+            for idx in p["phrase_groups"]:
+                if not phrase_masks[idx, doc]:
+                    return False
+            if not p["term_groups"]:
+                return True
+            counts = sum(
+                1 for idx in p["term_groups"]
+                if self._group_matches_doc(seg, group_keys[idx], doc))
+            required = p["minimum_should_match"]
+            required = 1 if required is None else required
+            return counts >= required
+        if kind == "dis_max":
+            return any(self._matcher_matches_host(
+                c, seg, compiled, group_keys, phrase_masks, doc)
+                for c in matcher.payload)
+        if kind == "bool":
+            p = matcher.payload
+            for child in p["must"]:
+                if not self._matcher_matches_host(
+                        child, seg, compiled, group_keys, phrase_masks,
+                        doc):
+                    return False
+            for child in p["must_not"]:
+                if self._matcher_matches_host(
+                        child, seg, compiled, group_keys, phrase_masks,
+                        doc):
+                    return False
+            slot = compiled._matcher_filter_slot.get(id(matcher))
+            if slot is not None:
+                for f in compiled.filter_slots[slot]:
+                    if not passes_filter(seg.fast, doc, f):
+                        return False
+            should = p["should"]
+            if should:
+                count = sum(
+                    1 for child in should
+                    if self._matcher_matches_host(
+                        child, seg, compiled, group_keys, phrase_masks,
+                        doc))
+                min_should = p["minimum_should_match"]
+                if min_should is None:
+                    min_should = (1 if not p["must"] and not p["filter"]
+                                  else 0)
+                return count >= min_should
+            if p["minimum_should_match"] not in (None, 0):
+                return False
+            return True
+        return False
+
+    def _explain_functions(self, compiled: CompiledQuery, score_tree,
+                           segment_ord: int, doc: int, plan=None,
+                           group_keys=None) -> list[dict]:
+        """Per-hit custom-scoring breakdown (function contributions),
+        recomputed on the host for the returned hits only. Each score
+        node's matcher is evaluated for the doc: unmatched nodes
+        contribute nothing (they scored 0 on the device)."""
+        from searchlite_tpu_torch.query.score_functions import (
+            apply_modifier_dense,
+            decay_dense,
+        )
+
+        seg = self.segments[segment_ord]
+        fast = seg.fast
+        out: list[dict] = []
+        phrase_masks = None
+        if plan is not None and plan.phrase_specs:
+            phrase_masks = self._segment_phrase_masks(
+                seg, plan.phrase_specs)
+
+        def node_matched(node) -> bool:
+            matcher = node.params.get("matcher")
+            if matcher is None or group_keys is None:
+                return True
+            return self._matcher_matches_host(
+                matcher, seg, compiled, group_keys, phrase_masks, doc)
+
+        def numeric_value(field: str):
+            vals = fast.numeric_values(field, doc)
+            return float(vals[0]) if vals else None
+
+        def walk(node):
+            if node.kind == "function_score":
+                if not node_matched(node):
+                    walk(node.params["base"])
+                    for child in node.children:
+                        walk(child)
+                    return
+                info = compiled._compiled_nodes.get(id(node), {})
+                for func in info.get("functions", []):
+                    if func.filter is not None and not passes_filter(
+                            fast, doc, func.filter):
+                        continue
+                    if func.kind == "weight":
+                        out.append({"type": "weight",
+                                    "value": func.params["weight"],
+                                    "field": None})
+                    elif func.kind == "field_value_factor":
+                        raw = numeric_value(func.params["field"])
+                        if raw is None:
+                            raw = func.params["missing"]
+                        val = float(apply_modifier_dense(
+                            np, np.asarray([raw * func.params["factor"]]),
+                            func.params["modifier"])[0])
+                        out.append({"type": "field_value_factor",
+                                    "value": val,
+                                    "field": func.params["field"]})
+                    elif func.kind == "decay":
+                        raw = numeric_value(func.params["field"])
+                        if raw is None:
+                            continue
+                        dist = abs(raw - func.params["origin"]) - \
+                            func.params["offset"]
+                        norm = max(dist, 0.0) / func.params["scale"]
+                        val = float(decay_dense(
+                            np, func.params["decay"], np.asarray([norm]),
+                            func.params["function"])[0])
+                        out.append({
+                            "type": f"decay_{func.params['function']}",
+                            "value": val,
+                            "field": func.params["field"]})
+                walk(node.params["base"])
+            elif node.kind == "rank_feature":
+                if node_matched(node):
+                    raw = numeric_value(node.params["field"])
+                    out.append({"type": "rank_feature",
+                                "value": raw if raw is not None
+                                else node.params.get("missing") or 0.0,
+                                "field": node.params["field"]})
+            elif node.kind == "script_score":
+                if node_matched(node):
+                    out.append({"type": "script_score", "value": None,
+                                "field": None})
+                walk(node.params["base"])
+            for child in node.children:
+                walk(child)
+
+        walk(score_tree)
+        return out
+
+    def _phrase_term_map(self, phrase_specs) -> dict[str, list[list[str]]]:
+        out: dict[str, list[list[str]]] = {}
+        for spec in phrase_specs:
+            for field in spec.fields:
+                out.setdefault(field, []).append(list(spec.terms))
+        return out
+
+    def _rescore_hits(self, hits: list[RankedHit], rescore_req,
+                      default_fields, sort_plan, req, stats) -> None:
+        if not hits or rescore_req.window_size == 0:
+            return
+        window = min(rescore_req.window_size, len(hits))
+        plan = build_query_plan(rescore_req.query, default_fields)
+        compiled = self._compile(plan, self.options.bm25_k1,
+                                 self.options.bm25_b)
+        qualified, group_keys = self._expand_term_groups(
+            plan.term_groups, req.fuzzy)
+        has_scored = bool(qualified)
+
+        # the rescore query per involved segment: scores and masks
+        seg_scores: dict[int, np.ndarray] = {}
+        seg_masks: dict[int, np.ndarray] = {}
+        involved = {h.key.segment_ord for h in hits[:window]}
+        for dseg in self.device_segments:
+            if dseg.ord not in involved or dseg.reader.doc_count == 0:
+                continue
+            seg = dseg.reader
+            qargs = self._segment_query_args(
+                dseg, qualified, group_keys, compiled.n_leaves,
+                compiled.n_groups)
+            phrase_masks = self._segment_phrase_masks(
+                seg, plan.phrase_specs, n1=dseg.n1)
+            filter_masks = self._segment_filter_masks(
+                seg, compiled.filter_slots, n1=dseg.n1)
+            col_vals, col_has = self._segment_columns(
+                seg, compiled.columns, n1=dseg.n1)
+            root_mask = np.ones(dseg.n1, dtype=bool)
+            out = self._run_dense(
+                dseg, compiled, qargs, phrase_masks, filter_masks,
+                col_vals, col_has, root_mask, 0.0, 2, 0, k=1,
+                has_scored=has_scored, need_scores=True, use_cursor=False)
+            final_mask, adjusted = _fetch([out[3], out[4]])
+            seg_scores[dseg.ord] = adjusted
+            seg_masks[dseg.ord] = final_mask
+            stats["postings_advanced"] += qargs["postings_touched"]
+
+        mode = rescore_req.score_mode
+        for h in hits[:window]:
+            ord_, doc = h.key.segment_ord, h.key.doc_id
+            mask = seg_masks.get(ord_)
+            if mask is None or not mask[doc]:
+                continue
+            rescore_score = float(seg_scores[ord_][doc])
+            stats["scored_docs"] += 1
+            orig = h.score
+            if mode in ("total", "sum"):
+                combined = orig + rescore_score
+            elif mode == "multiply":
+                combined = orig * rescore_score
+            elif mode == "max":
+                combined = max(orig, rescore_score)
+            else:
+                combined = min(orig, rescore_score)
+            h.score = combined
+            if h.explanation is not None:
+                h.explanation["rescore"] = {
+                    "rescore_score": rescore_score,
+                    "combined_score": combined,
+                }
+            elif req.explain:
+                h.explanation = {
+                    "base_score": orig,
+                    "functions": [],
+                    "rescore": {"rescore_score": rescore_score,
+                                "combined_score": combined},
+                    "final_score": combined,
+                }
+            # update the score part of the key so re-sorting sees it
+            if sort_plan.uses_score():
+                parts = list(h.key.parts)
+                for i, f in enumerate(sort_plan.fields):
+                    if f.kind == "score":
+                        parts[i] = combined
+                h.key = SortKey(parts, h.key.orders, h.key.segment_ord,
+                                h.key.doc_id)
+        hits[:window] = sorted(hits[:window], key=lambda h: _KeyWrap(h.key))
+
+    def _collapse_hits(self, hits: list[RankedHit], collapse, sort_plan
+                       ) -> list[tuple[RankedHit, list[RankedHit]]]:
+        field = collapse.field
+        groups: dict[Any, tuple[RankedHit, list[RankedHit]]] = {}
+        order: list[Any] = []
+        for h in hits:
+            seg = self.segments[h.key.segment_ord]
+            col = seg.fast.column(field)
+            if col is not None and col.is_list:
+                raise QueryError(
+                    f"collapse field `{field}` must be single-valued")
+            values = seg.fast.str_values(field, h.key.doc_id)
+            group_key = values[0] if values else None
+            if group_key not in groups:
+                groups[group_key] = (h, [])
+                order.append(group_key)
+            else:
+                groups[group_key][1].append(h)
+        out = []
+        for group_key in order:
+            top, inner = groups[group_key]
+            if collapse.inner_hits is not None:
+                ih = collapse.inner_hits
+                if ih.sort:
+                    inner_plan = SortPlan.from_request(self.schema, ih.sort)
+                    rekeyed = [
+                        RankedHit(
+                            key=inner_plan.build_key(
+                                self.segments[x.key.segment_ord].fast,
+                                x.key.doc_id, x.score, x.key.segment_ord),
+                            score=x.score, explanation=x.explanation)
+                        for x in inner
+                    ]
+                    rekeyed.sort(key=lambda h: _KeyWrap(h.key))
+                    inner = rekeyed
+                start = ih.from_
+                size = ih.size if ih.size is not None else 3
+                inner = inner[start:start + size]
+            else:
+                inner = []
+            out.append((top, inner))
+        return out
+
+    def _execute_suggest(self, suggest_reqs) -> dict:
+        out = {}
+        for name, sreq in suggest_reqs.items():
+            if self.schema.field_kind(sreq.field) not in ("text", "keyword"):
+                raise QueryError(
+                    f"suggest field `{sreq.field}` must be text or keyword")
+            analyzer = self.analysis.search_analyzer(sreq.field)
+            prefix = sreq.prefix
+            if analyzer is not None:
+                prefix = analyzer.normalize_pattern(prefix)
+            else:
+                prefix = prefix.lower()
+            candidates: dict[str, float] = {}
+            doc_freqs: dict[str, int] = {}
+            field_prefix_len = len(sreq.field) + 1
+
+            def consider(term: str, seg, tid):
+                _docs, tfs = seg.postings.term_postings(tid)
+                score = float(tfs.sum())
+                candidates[term] = candidates.get(term, 0.0) + score
+                doc_freqs[term] = doc_freqs.get(term, 0) + \
+                    int(seg.postings.term_df[tid])
+
+            for seg in self.segments:
+                scanned = 0
+                for key, tid in seg.terms.iter_prefix(
+                        f"{sreq.field}:{prefix}"):
+                    if scanned >= MAX_SUGGEST_CANDIDATES:
+                        break
+                    term = key[field_prefix_len:]
+                    consider(term, seg, tid)
+                    scanned += 1
+            if sreq.fuzzy is not None and len(candidates) < sreq.size:
+                max_edits = min(sreq.fuzzy.max_edits, 2)
+                plen = min(sreq.fuzzy.prefix_length, len(prefix))
+                for seg in self.segments:
+                    scanned = 0
+                    for key, tid in seg.terms.iter_prefix(
+                            f"{sreq.field}:{prefix[:plen]}"):
+                        if scanned >= MAX_SUGGEST_CANDIDATES:
+                            break
+                        term = key[field_prefix_len:]
+                        scanned += 1
+                        if term in candidates:
+                            continue
+                        candidate_prefix = term[:len(prefix)]
+                        if bounded_levenshtein(
+                                prefix, candidate_prefix,
+                                max_edits) is not None:
+                            consider(term, seg, tid)
+            ranked = sorted(candidates.items(),
+                            key=lambda kv: (-kv[1], kv[0]))[:sreq.size]
+            out[name] = {
+                "options": [
+                    {"text": term, "score": score,
+                     "doc_freq": doc_freqs.get(term, 0)}
+                    for term, score in ranked
+                ]
+            }
+        return out
+
+    def _materialize_hit(self, ranked: RankedHit, req,
+                         highlight_terms: list[str],
+                         phrase_terms: dict) -> Optional[Hit]:
+        seg = self.segments[ranked.key.segment_ord]
+        doc = ranked.key.doc_id
+        if doc >= seg.doc_count:
+            return None
+        doc_id_str = seg.doc_id(doc)
+        need_doc = (req.return_stored or req.highlight_field is not None
+                    or req.highlight is not None)
+        doc_cache = None
+        if need_doc:
+            try:
+                doc_cache = seg.get_doc(doc)
+            except Exception:  # noqa: BLE001
+                doc_cache = None
+
+        snippet = None
+        if req.highlight_field is not None and doc_cache is not None:
+            text_val = doc_cache.get(req.highlight_field)
+            if isinstance(text_val, str):
+                phrases = self._normalize_phrases(
+                    phrase_terms.get(req.highlight_field, []),
+                    req.highlight_field)
+                snippet = make_snippet(text_val, highlight_terms, phrases)
+
+        highlights = None
+        if req.highlight is not None and doc_cache is not None:
+            highlights = {}
+            for field, opts in req.highlight.fields.items():
+                text_val = doc_cache.get(field)
+                if not isinstance(text_val, str):
+                    continue
+                analyzer = self.analysis.search_analyzer(field)
+                if analyzer is not None:
+                    seen = set()
+                    terms = []
+                    for term in highlight_terms:
+                        for tok in analyzer.analyze(term):
+                            if tok.text not in seen:
+                                seen.add(tok.text)
+                                terms.append(tok.text)
+                else:
+                    terms = list(highlight_terms)
+                phrases = self._normalize_phrases(
+                    phrase_terms.get(field, []), field)
+                frags = highlight_fragments(
+                    text_val, terms, phrases,
+                    HighlightOptions(opts.pre_tag, opts.post_tag,
+                                     opts.fragment_size,
+                                     opts.number_of_fragments))
+                if frags:
+                    highlights[field] = frags
+            if not highlights:
+                highlights = None
+
+        return Hit(
+            doc_id=doc_id_str,
+            score=ranked.score,
+            vector_score=ranked.vector_score,
+            fields=doc_cache if req.return_stored else None,
+            snippet=snippet,
+            explanation=ranked.explanation,
+            highlights=highlights,
+            sort_key=ranked.key,
+        )
+
+    def _normalize_phrases(self, phrases: list[list[str]],
+                           field: str) -> list[list[str]]:
+        analyzer = self.analysis.search_analyzer(field)
+        if analyzer is None:
+            return phrases
+        out = []
+        for phrase in phrases:
+            tokens = analyzer.analyze(" ".join(phrase))
+            if tokens:
+                out.append([t.text for t in tokens])
+        return out
 
     def search_batch(self, queries: list[str], limit: int = 10,
                      fields: Optional[list[str]] = None,
@@ -799,19 +2381,82 @@ class IndexReader:
                                          scores.tolist())]
 
 
+class _KeyWrap:
+    """Comparison wrapper around SortKey for ``list.sort``."""
+
+    __slots__ = ("key",)
+
+    def __init__(self, key: SortKey):
+        self.key = key
+
+    def __lt__(self, other):
+        return self.key._cmp(other.key) < 0
+
+
+def _plan_sig(plan: QueryPlan) -> str:
+    def matcher_sig(m) -> str:
+        if m.kind in ("term", "phrase"):
+            return f"{m.kind}{m.payload}"
+        if m.kind == "match_all":
+            return "all"
+        if m.kind == "query_string":
+            p = m.payload
+            return (f"qs({p['term_groups']},{p['phrase_groups']},"
+                    f"{p['not_term_groups']},{p['minimum_should_match']})")
+        if m.kind == "dis_max":
+            return "dm(" + ",".join(matcher_sig(c) for c in m.payload) + ")"
+        p = m.payload
+        return ("bool(" + ",".join(matcher_sig(c) for c in p["must"]) + ";"
+                + ",".join(matcher_sig(c) for c in p["should"]) + ";"
+                + ",".join(matcher_sig(c) for c in p["must_not"]) + ";"
+                + json.dumps([f.to_json() for f in p["filter"]],
+                             sort_keys=True)
+                + f";{p['minimum_should_match']})")
+
+    def node_sig(n) -> str:
+        base = f"{n.kind}[{n.expr.signature() if n.expr else ''}]"
+        if n.params:
+            safe = {k: v for k, v in n.params.items()
+                    if k not in ("matcher", "base")}
+            try:
+                base += json.dumps(safe, sort_keys=True, default=repr)
+            except TypeError:
+                base += repr(sorted(safe))
+            if "matcher" in n.params:
+                base += matcher_sig(n.params["matcher"])
+            if "base" in n.params:
+                base += node_sig(n.params["base"])
+        return base + "(" + ",".join(node_sig(c) for c in n.children) + ")"
+
+    scorer_sig = plan.scorer.signature() if plan.scorer else "-"
+    return (f"{matcher_sig(plan.matcher)}|{scorer_sig}|"
+            f"{node_sig(plan.score_tree)}|{plan.leaf_count}|"
+            f"{len(plan.term_groups)}|{len(plan.phrase_specs)}")
+
+
+_NUMPY_OF = {torch.float32: np.float32, torch.int32: np.int32,
+             torch.int64: np.int64, torch.bool: np.bool_}
+
+
 def _fetch(tensors: list[torch.Tensor]) -> list[np.ndarray]:
-    """One device-to-host copy of many 32-bit tensors (their bits are
-    concatenated as int32), split back into numpy arrays of their own
-    dtypes and shapes."""
+    """One device-to-host copy of many tensors (f32, int32, int64, bool):
+    their bytes are concatenated, each padded to 8 bytes, and split back
+    into numpy arrays of their own dtypes and shapes."""
     if not tensors:
         return []
-    flat = torch.cat([t.contiguous().view(torch.int32).reshape(-1)
-                      for t in tensors]).cpu().numpy()
+    parts = []
+    for t in tensors:
+        b = t.contiguous().reshape(-1).view(torch.uint8)
+        pad = -b.numel() % 8
+        if pad:
+            b = torch.cat([b, b.new_zeros(pad)])
+        parts.append(b)
+    flat = torch.cat(parts).cpu().numpy()
     out = []
     off = 0
-    for t in tensors:
-        n = t.numel()
-        np_dtype = np.float32 if t.dtype == torch.float32 else np.int32
-        out.append(flat[off:off + n].view(np_dtype).reshape(t.shape))
-        off += n
+    for t, part in zip(tensors, parts):
+        n = t.numel() * t.element_size()
+        out.append(flat[off:off + n].view(_NUMPY_OF[t.dtype])
+                   .reshape(t.shape))
+        off += part.numel()
     return out

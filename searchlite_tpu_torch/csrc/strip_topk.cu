@@ -55,6 +55,9 @@
 // ~doc): warp-level bitonic sorts for KT = 16, a block sort otherwise.
 // The row merge (topk_merge.cuh, shared with fused_topk.cu) sorts or
 // radix-selects each row's keys and sums the per-tile match counts.
+// strip_lanes_blocks_launch runs the tile kernel alone at KT = 1,024 and
+// writes every lane's (score, doc) instead of keys, for callers that read
+// the whole strip.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -234,7 +237,9 @@ strip_tile_kernel(const int* __restrict__ bdocs,
                   const float* __restrict__ w, const int* __restrict__ sent,
                   int row0, int T, int nblk, int L, int n_tiles, int KT,
                   unsigned long long* __restrict__ cand,
-                  int* __restrict__ tile_counts) {
+                  int* __restrict__ tile_counts,
+                  float* __restrict__ lane_scores,
+                  int* __restrict__ lane_docs) {
   extern __shared__ __align__(16) int stage[];  // 2 x kStageDocs docs
   __shared__ long long s_start[kMaxSlots];      // slot's first lane in bdocs
   __shared__ int s_len[kMaxSlots];              // slot's lanes in the strip
@@ -254,8 +259,10 @@ strip_tile_kernel(const int* __restrict__ bdocs,
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int dead = sent[1];
-  unsigned long long* out =
-      cand + (static_cast<size_t>(row) * n_tiles + tile) * KT;
+  const size_t tile_at = static_cast<size_t>(row) * n_tiles + tile;
+  // all-lanes mode (lane_scores set): every lane's (score, doc), no keys
+  const bool all_lanes = lane_scores != nullptr;
+  unsigned long long* out = all_lanes ? nullptr : cand + tile_at * KT;
 
   // 1. the row's slot table and this tile's slot (warp 0, 32 slots a step)
   if (warp == 0) {
@@ -311,11 +318,16 @@ strip_tile_kernel(const int* __restrict__ bdocs,
   }
   __syncthreads();
   const int t = s_t;
-  if (t < 0) {  // past the row's blocks: padding keys only
+  if (t < 0) {  // past the row's blocks: padding only
     for (int i = tid; i < KT; i += kThreads) {
-      out[i] = pad_key(tile * kTileLanes + i);
+      if (all_lanes) {
+        lane_scores[tile_at * kTileLanes + i] = -INFINITY;
+        lane_docs[tile_at * kTileLanes + i] = dead;
+      } else {
+        out[i] = pad_key(tile * kTileLanes + i);
+      }
     }
-    if (tid == 0) tile_counts[static_cast<size_t>(row) * n_tiles + tile] = 0;
+    if (tid == 0) tile_counts[tile_at] = 0;
     return;
   }
 
@@ -505,7 +517,8 @@ strip_tile_kernel(const int* __restrict__ bdocs,
     cp_async_wait<0>();
   }
 
-  // 5. scores, the tile's match count, its best KT keys
+  // 5. scores, the tile's match count, its best KT keys (or, in the
+  // all-lanes mode, every lane's score and doc)
   unsigned long long key[kLanesPerThread];
   int cnt = 0;
 #pragma unroll
@@ -515,15 +528,19 @@ strip_tile_kernel(const int* __restrict__ bdocs,
     cnt += ok ? 1 : 0;
     key[j] = ok ? make_key(sc, d[j])
                 : pad_key(tile * kTileLanes + tid * kLanesPerThread + j);
+    if (all_lanes) {
+      const size_t at = tile_at * kTileLanes + tid * kLanesPerThread + j;
+      lane_scores[at] = ok ? sc : -INFINITY;
+      lane_docs[at] = ok ? d[j] : dead;
+    }
   }
   // the warp's match count, in every lane
   for (int o = 16; o > 0; o >>= 1) cnt += __shfl_xor_sync(0xffffffffu, cnt, o);
   if (lane == 0 && cnt) atomicAdd(&s_count, cnt);
   __syncthreads();  // also: every staged read is done
-  if (tid == 0) {
-    tile_counts[static_cast<size_t>(row) * n_tiles + tile] = s_count;
-  }
+  if (tid == 0) tile_counts[tile_at] = s_count;
 
+  if (all_lanes) return;
   if (KT >= kTileLanes) {
 #pragma unroll
     for (int j = 0; j < kLanesPerThread; ++j) {
@@ -558,7 +575,7 @@ int launch_tiles(const int* bdocs, const float* bimps, const int* bstart,
                  const int* bcnt, const float* w, const int* sent, int B,
                  int T, int nblk, int L, int n_tiles, int KT,
                  unsigned long long* cand, int* tile_counts,
-                 cudaStream_t stream) {
+                 float* lane_scores, int* lane_docs, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(2) * kStageDocs * sizeof(int);
   cudaError_t err = cudaFuncSetAttribute(
       strip_tile_kernel<LM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -568,7 +585,7 @@ int launch_tiles(const int* bdocs, const float* bimps, const int* bstart,
     const int rows = B - row0 < 65535 ? B - row0 : 65535;
     strip_tile_kernel<LM><<<dim3(n_tiles, rows), kThreads, smem, stream>>>(
         bdocs, bimps, bstart, bcnt, w, sent, row0, T, nblk, L, n_tiles, KT,
-        cand, tile_counts);
+        cand, tile_counts, lane_scores, lane_docs);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -619,19 +636,60 @@ int strip_topk_blocks_launch(const void* block_docs, const void* block_impacts,
   int err;
   if (log2_run <= 2) {
     err = launch_tiles<2>(bd, bi, bs, bc, wf, sp, B, T, nblk, log2_run,
-                          n_tiles, KT, c, tc, s);
+                          n_tiles, KT, c, tc, nullptr, nullptr, s);
   } else if (log2_run <= 4) {
     err = launch_tiles<4>(bd, bi, bs, bc, wf, sp, B, T, nblk, log2_run,
-                          n_tiles, KT, c, tc, s);
+                          n_tiles, KT, c, tc, nullptr, nullptr, s);
   } else {
     err = launch_tiles<8>(bd, bi, bs, bc, wf, sp, B, T, nblk, log2_run,
-                          n_tiles, KT, c, tc, s);
+                          n_tiles, KT, c, tc, nullptr, nullptr, s);
   }
   if (err != 0) return err;
   return topk_merge::merge_topk_launch(
       c, B, n_tiles * KT, k, k2, 0, sp + 1, static_cast<float*>(ts),
       static_cast<int*>(td), static_cast<unsigned long long*>(merge_scratch),
       tc, n_tiles, static_cast<int*>(counts), s);
+}
+
+// Every kept doc of each row's strip with its score, in lane order, for
+// callers that read the whole strip (the single-query term split): the tile
+// kernel alone at KT = 1,024, no keys and no row merge. lane_scores [B,
+// n_tiles * strip_topk_tile_lanes()] f32 receives each kept lane's summed
+// score and -inf elsewhere, lane_docs (same shape, int32) its doc (the dead
+// doc elsewhere); tile_counts [B, n_tiles] int32 the kept lanes per tile.
+// n_tiles >= ceil(nblk / 8) + T; the other operands as
+// strip_topk_blocks_launch's.
+int strip_lanes_blocks_launch(const void* block_docs, const void* block_impacts,
+                              const void* bstart, const void* bcnt,
+                              const void* w, const void* sent, int B, int T,
+                              int nblk, int log2_run, int n_tiles,
+                              void* lane_scores, void* lane_docs,
+                              void* tile_counts, void* stream) {
+  if (B == 0) return 0;
+  if (T < 1 || T > kMaxSlots || log2_run < 0 || log2_run > 8 ||
+      n_tiles < 1 || n_tiles > 65535) {
+    return cudaErrorInvalidValue;
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* bd = static_cast<const int*>(block_docs);
+  const float* bi = static_cast<const float*>(block_impacts);
+  const int* bs = static_cast<const int*>(bstart);
+  const int* bc = static_cast<const int*>(bcnt);
+  const float* wf = static_cast<const float*>(w);
+  const int* sp = static_cast<const int*>(sent);
+  float* ls = static_cast<float*>(lane_scores);
+  int* ld = static_cast<int*>(lane_docs);
+  int* tc = static_cast<int*>(tile_counts);
+  if (log2_run <= 2) {
+    return launch_tiles<2>(bd, bi, bs, bc, wf, sp, B, T, nblk, log2_run,
+                           n_tiles, kTileLanes, nullptr, tc, ls, ld, s);
+  }
+  if (log2_run <= 4) {
+    return launch_tiles<4>(bd, bi, bs, bc, wf, sp, B, T, nblk, log2_run,
+                           n_tiles, kTileLanes, nullptr, tc, ls, ld, s);
+  }
+  return launch_tiles<8>(bd, bi, bs, bc, wf, sp, B, T, nblk, log2_run,
+                         n_tiles, kTileLanes, nullptr, tc, ls, ld, s);
 }
 
 }  // extern "C"

@@ -22,7 +22,9 @@ explicit ``torch.device``:
 and, built on first use and cached, what the dense and term-split scorers
 read: :meth:`DeviceSegment.dense_rows` (resident f32 impact rows of the
 highest-df terms) and :meth:`DeviceSegment.heavy_lookup` (the head-term
-doc-to-block lookup).
+doc-to-block lookup). The single-query reader also reads the host build's
+``posting_base``, ``block_max_impact`` (per-block max impact, the
+pruning telemetry) and ``live_term_df`` (the term split's counts).
 
 Impacts stay f32. :func:`cached_segment` shares segments across readers.
 """
@@ -107,9 +109,10 @@ class HostSegment:
             if out is None:
                 out = self._impacts_numpy(postings, term_fields, term_df,
                                           doc_len, avgdl)
-            (self.block_docs_np, self.block_impacts_np, _block_max,
-             docs_flat, impacts) = out
+            (self.block_docs_np, self.block_impacts_np,
+             self.block_max_impact, docs_flat, impacts) = out
         else:
+            self.block_max_impact = np.zeros(0, dtype=np.float32)
             self.block_docs_np = np.concatenate([
                 np.where(bd < 0, self.n1 - 1, bd).astype(np.int32),
                 np.full((1, 128), self.n1 - 1, dtype=np.int32)])
@@ -135,6 +138,7 @@ class HostSegment:
         self._idf32 = None
         self._sparse_tid_tbl = None
         self._heavy_lookup_host = None
+        self._live_df_cache: dict[int, int] = {}
 
     def _impacts_native(self, postings, term_fields, term_df, doc_len,
                         avgdl):
@@ -256,6 +260,23 @@ class HostSegment:
         return host
 
 
+    def live_term_df(self, tid: int) -> int:
+        """Exact live (non-tombstoned) document frequency of one term: the
+        single-query term split's count arithmetic (|light | heavy| =
+        n_strip + live_df - overlap) needs it. Free without deletions;
+        otherwise one pass over the term's postings, cached per term."""
+        p = self.reader.postings
+        if self.live_docs == self.n_docs:
+            return int(p.term_df[tid])
+        got = self._live_df_cache.get(tid)
+        if got is None:
+            base = int(p.df_base(tid))
+            docs = self.docs_flat_np[base: base + int(p.term_df[tid])]
+            got = int(np.count_nonzero(~self.deleted_np[docs]))
+            self._live_df_cache[tid] = got
+        return got
+
+
 TENSOR_KEYS = ("block_docs", "block_impacts_live", "sparse_tid_tbl",
                "sparse_sentinels", "deleted")
 # DeviceSegment.heavy_lookup's tensors (ops/sparse.py::build_heavy_lookup_
@@ -311,6 +332,10 @@ class DeviceSegment:
         self.n1 = self.host.n1
         self.n_block_rows = self.host.n_block_rows
         self.live_docs = self.host.live_docs
+        self.posting_base = self.host.posting_base
+        self.block_max_impact = self.host.block_max_impact
+        self.live_term_df = self.host.live_term_df
+        self.heavy_lookup_host = self.host.heavy_lookup_host
         tensors = from_host_arrays(host_arrays(self.host), self.device)
         self.block_docs = tensors["block_docs"]
         self.block_impacts_live = tensors["block_impacts_live"]

@@ -11,6 +11,7 @@ data, `index/mod.rs:202-212`).
 from __future__ import annotations
 
 import logging
+import os
 import threading
 from typing import Optional
 
@@ -37,6 +38,9 @@ class Index:
         self._merge_guard = threading.Lock()
         self._merging_ids: set = set()
         self.options = options or IndexOptions(path="")
+        # where this index's readers (and the merge warm) put segments:
+        # the card unless the caller sets "cpu"
+        self.device = "cuda"
 
     # -- constructors --------------------------------------------------------
 
@@ -106,13 +110,14 @@ class Index:
 
         return IndexWriter(self)
 
-    def reader(self, device="cuda"):
-        """The port's batched reader over this index, with every segment
-        on ``device``: the card unless the caller asks for the CPU
-        (``device="cpu"``). Raises where CUDA is absent."""
+    def reader(self, device=None):
+        """The port's reader over this index, with every segment on
+        ``device`` (default ``self.device``: the card unless the caller
+        asks for the CPU). Raises where CUDA is absent."""
         from searchlite_tpu_torch.api.reader import IndexReader
 
-        return IndexReader(self, device=device)
+        return IndexReader(self, device=self.device if device is None
+                           else device)
 
     # -- maintenance -----------------------------------------------------------
 
@@ -149,13 +154,17 @@ class Index:
         and re-upload every later survivor for nothing.
         Returns the number of segments merged (0 = nothing to do).
 
-        No warm-before-swap: the JAX package opens and searches the fold
-        before the swap (``_warm_fold``); this copy does not warm yet, so
-        the first search that touches a fold uploads it (ROADMAP.md
-        queue 1: merge warm).
+        Warm-before-swap: once the fold's files exist but BEFORE the
+        manifest swap, the merged segment is opened, uploaded to
+        ``self.device`` and searched once on THIS thread
+        (``_warm_fold``), filling the process-wide segment cache. Until
+        the swap, readers serve the pre-merge snapshot -- a fold is
+        content-neutral, so serving the old segments during the warm is
+        exact. Without it the first search that touches a fold pays its
+        upload. ``SEARCHLITE_MERGE_WARM=0`` disables.
 
-        DE-LOCKED: the fold runs OUTSIDE the writer lock, so a
-        background merge never blocks a commit. Concurrency contract:
+        DE-LOCKED: the fold and the warm run OUTSIDE the writer lock, so
+        a background merge never blocks a commit. Concurrency contract:
 
         - selection runs under the lock and marks the chosen ids in
           ``_merging_ids`` — a second merge never selects an
@@ -212,6 +221,12 @@ class Index:
                 if chosen_ids <= current:
                     raise
                 return 0
+            if new_meta is not None and os.environ.get(
+                    "SEARCHLITE_MERGE_WARM", "1") != "0":
+                preview = [m for m in manifest.segments
+                           if m.id not in chosen_ids] + [new_meta]
+                self._warm_fold(manifest, preview)
+
             with self.writer_lock:
                 manifest = self.reload_manifest()
                 live_by_id = {m.id: m for m in manifest.segments}
@@ -301,6 +316,66 @@ class Index:
     @property
     def wal(self) -> Wal:
         return Wal(self.storage)
+
+
+    def _warm_fold(self, manifest, segments) -> None:
+        """Open + search the post-merge segment list through a shadow
+        Index whose manifest is the POST-swap state, while the live
+        manifest still serves the pre-merge snapshot. Opening the reader
+        on ``self.device`` fills the process-wide ``cached_segment``
+        entries (the fold's upload); the searches run the two most common
+        request shapes (multi-term limit-10 and single-term limit-1).
+        Best-effort: any failure is logged and the first search pays the
+        warm; the merge never fails for it. Runs on the merge thread
+        OUTSIDE the writer lock."""
+        import copy
+
+        try:
+            shadow_manifest = copy.copy(manifest)
+            shadow_manifest.segments = list(segments)
+            shadow = Index(self.storage, shadow_manifest, self.options)
+            reader = shadow.reader(device=self.device)
+            seg = reader.segments[-1]
+
+            # pick index terms that round-trip through their field's
+            # SEARCH analyzer unchanged, so a plain query string is
+            # guaranteed to hit the fold's postings
+            def round_trips(key: str) -> Optional[str]:
+                field, _, tok = key.partition(":")
+                analyzer = reader.analysis.search_analyzer(field)
+                if analyzer is None or not tok:
+                    return None
+                out = analyzer.analyze(tok)
+                if len(out) == 1 and out[0].text == tok \
+                        and seg.term_id(key) is not None:
+                    return tok
+                return None
+
+            toks: list[str] = []
+            all_terms = seg.terms.terms
+            step = max(1, len(all_terms) // 64)
+            for key in all_terms[::step]:
+                tok = round_trips(key)
+                if tok is not None:
+                    toks.append(tok)
+                    if len(toks) >= 2:
+                        break
+            if not toks:
+                # keys sort by field name, so the strided pass can land
+                # entirely in one analyzer-mangling field: scan densely
+                # before giving up
+                for key in all_terms[:4096]:
+                    tok = round_trips(key)
+                    if tok is not None:
+                        toks.append(tok)
+                        if len(toks) >= 2:
+                            break
+            if toks:
+                reader.search({"query": " ".join(toks), "limit": 10})
+                reader.search({"query": toks[0], "limit": 1})
+        except Exception:  # noqa: BLE001 -- warm is best-effort
+            logger.warning("merge warm failed (the first search will pay "
+                           "the fold's upload)", exc_info=True)
 
 
 def _carry_late_tombstones(snapshot, live_by_id, new_meta) -> None:

@@ -34,6 +34,7 @@ from searchlite_tpu_torch.ops.impact import (
 )
 from searchlite_tpu_torch.ops.strip_topk import (  # noqa: F401
     strip_gather,
+    strip_lanes_blocks,
     strip_topk_blocks,
 )
 
@@ -497,6 +498,40 @@ def sparse_candidate_scorer_packed(block_docs, block_impacts, tid_tbl,
                           log2_run=log2_run, with_counts=with_counts)
 
 
+def _heavy_meta(hvy_tid, hvy_w, hb_base, hb_log2g, tid_tbl):
+    """Per heavy slot: (wh, tbase, lg, blk0, last, ok_h) for the point
+    lookups of :func:`_heavy_contrib`, shaped like ``hvy_tid``."""
+    tbase = hb_base[hvy_tid]
+    lg = hb_log2g[hvy_tid]
+    blk0 = tid_tbl[0][hvy_tid]
+    nb_t = tid_tbl[1][hvy_tid]
+    last = blk0 + torch.clamp(nb_t - 1, min=0)
+    ok_h = (hvy_w > 0.0) & (tbase >= 0) & (nb_t > 0)
+    return hvy_w, tbase, lg, blk0, last, ok_h
+
+
+def _heavy_contrib(block_docs, block_impacts, hb_tbl, docs, tbase, lg, blk0,
+                   last, ok_h, sentinel_row):
+    """One heavy term's impact at each of ``docs`` [R, C] (0 where the
+    term does not hold the doc): the lookup table names the block that
+    may hold the doc, and the doc is searched in that block and the next
+    (two [R, C, 128] gathers). The term's fields are [R] per row."""
+    n_tbl = hb_tbl.shape[0]
+    g = docs >> lg[:, None]  # docs are >= 0: logical == arithmetic
+    ent_idx = torch.clamp(
+        torch.where(ok_h, tbase, 0)[:, None] + g, max=n_tbl - 1)
+    ent = hb_tbl[ent_idx.long()]
+    b1 = torch.minimum(torch.maximum(ent, blk0[:, None]), last[:, None])
+    b2 = torch.minimum(b1 + 1, last[:, None])
+    b2_ok = ok_h[:, None] & (b2 != b1)
+    b1 = torch.where(ok_h[:, None], b1, sentinel_row).long()
+    b2 = torch.where(b2_ok, b2, sentinel_row).long()
+    return (torch.where(block_docs[b1] == docs[..., None],
+                        block_impacts[b1], 0.0).sum(dim=-1)
+            + torch.where(block_docs[b2] == docs[..., None],
+                          block_impacts[b2], 0.0).sum(dim=-1))
+
+
 def candidate_core_split(block_docs, block_impacts, bstart, bcnt, w, sent,
                          hvy, hb_tbl, hb_base, hb_log2g, tid_tbl, maximp, *,
                          k: int, kp: int, t_pad: int, nblk: int,
@@ -529,18 +564,12 @@ def candidate_core_split(block_docs, block_impacts, bstart, bcnt, w, sent,
     hvy_tid = hvy[0].long()
     hvy_w = hvy[1].contiguous().view(torch.float32)
     hub = torch.zeros((B,), dtype=torch.float32, device=tv.device)
-    n_tbl = hb_tbl.shape[0]
     slot_meta = []
     for h in range(h_pad):
         tid = hvy_tid[:, h]
-        wh = hvy_w[:, h]
-        tbase = hb_base[tid]
-        lg = hb_log2g[tid]
-        blk0 = tid_tbl[0][tid]
-        nb_t = tid_tbl[1][tid]
-        last = blk0 + torch.clamp(nb_t - 1, min=0)
-        ok_h = (wh > 0.0) & (tbase >= 0) & (nb_t > 0)
-        slot_meta.append((wh, tbase, lg, blk0, last, ok_h))
+        meta = _heavy_meta(tid, hvy_w[:, h], hb_base, hb_log2g, tid_tbl)
+        slot_meta.append(meta)
+        wh, ok_h = meta[0], meta[5]
         hub = hub + torch.where(ok_h, wh * maximp[tid], 0.0)
 
     heavy_sum = torch.zeros_like(tv)
@@ -556,20 +585,8 @@ def candidate_core_split(block_docs, block_impacts, bstart, bcnt, w, sent,
         td_c = td_h[:, c0:c0 + chunk]
         hs = torch.zeros(td_c.shape, dtype=torch.float32, device=tv.device)
         for wh, tbase, lg, blk0, last, ok_h in slot_meta:
-            g = td_c >> lg[:, None]  # docs are >= 0: logical == arithmetic
-            ent_idx = torch.clamp(
-                torch.where(ok_h, tbase, 0)[:, None] + g, max=n_tbl - 1)
-            ent = hb_tbl[ent_idx.long()]
-            b1 = torch.minimum(torch.maximum(ent, blk0[:, None]),
-                               last[:, None])
-            b2 = torch.minimum(b1 + 1, last[:, None])
-            b2_ok = ok_h[:, None] & (b2 != b1)
-            b1 = torch.where(ok_h[:, None], b1, sentinel_row).long()
-            b2 = torch.where(b2_ok, b2, sentinel_row).long()
-            c = (torch.where(block_docs[b1] == td_c[..., None],
-                             block_impacts[b1], 0.0).sum(dim=-1)
-                 + torch.where(block_docs[b2] == td_c[..., None],
-                               block_impacts[b2], 0.0).sum(dim=-1))
+            c = _heavy_contrib(block_docs, block_impacts, hb_tbl, td_c,
+                               tbase, lg, blk0, last, ok_h, sentinel_row)
             hs = hs + wh[:, None] * c
         if heavy_rows is None:
             heavy_sum[:, c0:c0 + chunk] = hs
@@ -660,3 +677,62 @@ def row_combine(light_s, light_i, heavy_s, heavy_i, maps, *, n_rows: int):
     s[heavy_map] = heavy_s.to(light_s.dtype)
     i[heavy_map] = heavy_i.to(light_i.dtype)
     return s[:n_rows], i[:n_rows]
+
+
+def sparse_single_split_scorer(block_docs, block_impacts, hb_tbl, hb_base,
+                               hb_log2g, tid_tbl, maximp, tbl, hvy, sent, *,
+                               k: int, t_pad: int, nblk: int, log2_run: int):
+    """Single-query term split (``make_sparse_single_split_scorer``): the
+    query's light terms ride one candidate strip, ``tbl`` [3, 1, t_pad]
+    (block starts, block counts, f32 weights bit-cast); up to ``h_pad``
+    heavy terms, ``hvy`` [2, h_pad] (term ids, f32 weights bit-cast; 0 =
+    unused), add their impacts by point lookup at EVERY strip doc. So
+    soundness needs only theta > HUB = sum of w_h * maximp_h: a doc off
+    the strip matches heavy terms alone.
+
+    The strip kernel returns every kept strip doc with its light score
+    and the count (:func:`strip_lanes_blocks`: its tile pass, no row
+    merge); the strip is never gathered on the card. The heavy lookups and
+    the final (score desc, doc asc) top-k are torch ops.
+    Returns (scores [1,k], ids [1,k], n_strip [1] int32, overlap [h_pad]
+    int32, sound [1] bool): ``overlap[h]`` counts the strip docs heavy
+    term h also holds (the caller's count arithmetic)."""
+    del t_pad
+    sentinel_row = sent[0]
+    bstart, bcnt = tbl[0], tbl[1]
+    w = tbl[2].contiguous().view(torch.float32)
+    tv, td, n_strip = strip_lanes_blocks(
+        block_docs, block_impacts, bstart, bcnt, w, sent, nblk=nblk,
+        log2_run=log2_run)
+    width = tv.shape[1]
+    real = tv[0] > float("-inf")                                  # [L]
+    docs = torch.where(real, td[0], sent[1])   # -inf lanes: the dead slot
+    hvy_tid = hvy[0].long()
+    wh, tbase, lg, blk0, last, ok_h = _heavy_meta(
+        hvy_tid, hvy[1].contiguous().view(torch.float32), hb_base,
+        hb_log2g, tid_tbl)
+    h_pad = hvy_tid.shape[0]
+    # every heavy term at once, [h_pad, chunk, 128] gathers: chunks bound
+    # the temporaries at wide strips (at most 2^17 lookups a chunk)
+    chunk = max(32768, (1 << 17) // h_pad)
+    parts = []
+    for c0 in range(0, width, chunk):
+        dc = docs[None, c0:c0 + chunk].expand(h_pad, -1)
+        parts.append(wh[:, None] * _heavy_contrib(
+            block_docs, block_impacts, hb_tbl, dc, tbase, lg, blk0, last,
+            ok_h, sentinel_row))
+    hv = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+    overlap = (real[None, :] & (hv > 0.0)).sum(dim=1, dtype=torch.int32)
+    score = torch.where(real, tv[0] + hv.sum(dim=0), float("-inf"))
+    # (score desc, doc asc): a stable doc-ascending sort, then a stable
+    # score-descending one
+    d_sorted, od = torch.sort(docs, stable=True)
+    s_sorted = score[od]
+    _, osc = torch.sort(-s_sorted, stable=True)
+    ts = s_sorted[osc[:k]][None, :]
+    ids = d_sorted[osc[:k]][None, :]
+    hub = torch.where(ok_h, wh * maximp[hvy_tid], 0.0).sum()
+    nreal = (ts > float("-inf")).sum(dim=1)
+    theta = torch.where(nreal >= k, ts[:, k - 1], float("-inf"))
+    sound = (hub <= 0.0) | (theta > hub)
+    return ts, ids, n_strip, overlap, sound

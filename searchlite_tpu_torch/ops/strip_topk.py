@@ -19,6 +19,11 @@ posting blocks in place and searches the slots' pre-sorted doc runs. There
 is no fallback between the two. They are bit-identical on finite entries:
 the kernel sums each doc's slot values in the plain scan's tree order.
 
+:func:`strip_lanes_blocks` returns every kept doc of the strip with its
+score instead of a top-k, for a caller that reads the whole strip (the
+single-query term split): on CUDA the kernel's tile pass without its row
+merge, on the CPU the plain scan.
+
 :func:`strip_topk` over an already gathered (d, v) strip is the plain
 version alone, for CPU tensors.
 """
@@ -60,6 +65,8 @@ class DeviceCalls:
 
 
 COUNTS = LaunchCounts()
+# strip_lanes_blocks' launches (the tile pass alone) and plain calls
+LANES_COUNTS = LaunchCounts()
 # strip_gather's calls: on CUDA only the plain version, never the main path
 GATHER_CALLS = DeviceCalls()
 
@@ -105,12 +112,10 @@ def strip_topk(d: torch.Tensor, v: torch.Tensor, sent, *, k: int,
     return out if with_counts else out[:2]
 
 
-def strip_topk_plain(d: torch.Tensor, v: torch.Tensor, sent, *, k: int,
-                     log2_run: int):
-    """The plain PyTorch version: stable sort by doc, the shifted-add
-    combine, a stable descending sort of the masked scores, the first k.
-    (``torch.topk`` promises no tie order, so it is not used.) Returns
-    (ts, td, counts)."""
+def _strip_scan(d: torch.Tensor, v: torch.Tensor, sent, log2_run: int):
+    """The plain scan: a stable sort by doc, the shifted-add combine, the
+    kept run ends. Returns (ds [B, L] doc-sorted, score [B, L] with -inf
+    off the kept lanes, ok [B, L] bool)."""
     B, L = d.shape
     ds, order = torch.sort(d, dim=1, stable=True)
     vs = torch.gather(v, 1, order)
@@ -126,7 +131,17 @@ def strip_topk_plain(d: torch.Tensor, v: torch.Tensor, sent, *, k: int,
          torch.ones((B, min(L, 1)), dtype=torch.bool, device=d.device)],
         dim=1)
     ok = run_end & (ds != sent) & (vs > 0.0)
-    score = torch.where(ok, vs, float("-inf"))
+    return ds, torch.where(ok, vs, float("-inf")), ok
+
+
+def strip_topk_plain(d: torch.Tensor, v: torch.Tensor, sent, *, k: int,
+                     log2_run: int):
+    """The plain PyTorch version: stable sort by doc, the shifted-add
+    combine, a stable descending sort of the masked scores, the first k.
+    (``torch.topk`` promises no tie order, so it is not used.) Returns
+    (ts, td, counts)."""
+    B = d.shape[0]
+    ds, score, ok = _strip_scan(d, v, sent, log2_run)
     ss, pos = torch.sort(score, dim=1, descending=True, stable=True)
     ts = ss[:, :k]
     td = torch.gather(ds, 1, pos[:, :k])
@@ -233,11 +248,12 @@ def strip_topk_blocks_plain(block_docs, block_impacts, bstart, bcnt, w,
     return strip_topk_plain(d, v, sent[1:2], k=k, log2_run=log2_run)
 
 
-_LAUNCH = None  # (launch fn, tile lanes, max slots, sort smem keys)
+_LAUNCH = None  # (top-k launch fn, tile lanes, max slots, sort smem keys,
+#                  all-lanes launch fn)
 
 
 def _launcher():
-    """The kernel's launch function and geometry, read once."""
+    """The kernel's launch functions and geometry, read once."""
     global _LAUNCH
     if _LAUNCH is None:
         from searchlite_tpu_torch.ops._kernels import load
@@ -247,31 +263,45 @@ def _launcher():
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
                        + [ctypes.c_void_p] * 7)
+        lanes = lib.strip_lanes_blocks_launch
+        lanes.restype = ctypes.c_int
+        lanes.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                          + [ctypes.c_void_p] * 4)
         _LAUNCH = (fn, lib.strip_topk_tile_lanes(),
                    lib.strip_topk_max_slots(),
-                   lib.strip_topk_sort_smem_keys())
+                   lib.strip_topk_sort_smem_keys(), lanes)
     return _LAUNCH
+
+
+def _n_tiles(nblk: int, t_pad: int, tile_lanes: int) -> int:
+    """Tiles a row's strip may take: a slot's blocks split into tiles of
+    tile_lanes / 128 blocks."""
+    tile_blocks = tile_lanes // 128
+    return max((nblk + (tile_blocks - 1) * t_pad) // tile_blocks, 1)
+
+
+def _check_cuda_operands(block_docs, block_impacts, bstart, bcnt, w, sent,
+                         log2_run: int, max_slots: int):
+    tensors = (block_docs, block_impacts, bstart, bcnt, w, sent)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the strip kernel needs contiguous operands")
+    if block_docs.data_ptr() % 16 or block_impacts.data_ptr() % 16:
+        raise ValueError("block_docs and block_impacts must be 16-byte "
+                         "aligned")
+    if bstart.shape[1] > max_slots or log2_run > 8:
+        raise ValueError(f"t_pad {bstart.shape[1]} / log2_run {log2_run} "
+                         "past the kernel's slot table")
 
 
 def _strip_topk_blocks_cuda(block_docs, block_impacts, bstart, bcnt, w,
                             sent, *, k: int, nblk: int, log2_run: int):
-    fn, tile_lanes, max_slots, sort_smem = _launcher()
-    tensors = (block_docs, block_impacts, bstart, bcnt, w, sent)
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("strip_topk_blocks needs contiguous operands")
-    if block_docs.data_ptr() % 16 or block_impacts.data_ptr() % 16:
-        raise ValueError("block_docs and block_impacts must be 16-byte "
-                         "aligned")
+    fn, tile_lanes, max_slots, sort_smem, _lanes = _launcher()
+    _check_cuda_operands(block_docs, block_impacts, bstart, bcnt, w, sent,
+                         log2_run, max_slots)
     B, t_pad = bstart.shape
-    if t_pad > max_slots or log2_run > 8:
-        raise ValueError(f"t_pad {t_pad} / log2_run {log2_run} past the "
-                         "kernel's slot table")
     dev = bstart.device
     kt = min(tile_lanes, max(16, k))
-    tile_blocks = tile_lanes // 128
-    # a slot's blocks split into tiles of tile_blocks: at most this many
-    n_tiles = max((nblk + (tile_blocks - 1) * t_pad) // tile_blocks,
-                  -(-k // kt), 1)
+    n_tiles = max(_n_tiles(nblk, t_pad, tile_lanes), -(-k // kt))
     k2 = 1 << (k - 1).bit_length()  # the next power of two >= k
     # one allocation: the candidate keys, then ts, td, counts and the
     # per-tile counts as 32-bit words
@@ -301,3 +331,70 @@ def _strip_topk_blocks_cuda(block_docs, block_impacts, bstart, bcnt, w,
                            f"(B={B}, t_pad={t_pad}, nblk={nblk}, k={k})")
     COUNTS.launches += 1
     return ts, td, counts
+
+
+def strip_lanes_blocks(block_docs: torch.Tensor, block_impacts: torch.Tensor,
+                       bstart: torch.Tensor, bcnt: torch.Tensor,
+                       w: torch.Tensor, sent: torch.Tensor, *, nblk: int,
+                       log2_run: int):
+    """Every kept doc of each row's candidate strip with its summed score,
+    in no set order, for callers that read the whole strip (the
+    single-query term split): the operands as :func:`strip_topk_blocks`'s.
+    Returns (scores [B, n] f32, docs [B, n] int32, counts [B] int32):
+    each kept doc once with its score, -inf elsewhere (the dead doc
+    ``sent[1]`` there), ``n`` at least the strip's width.
+
+    CPU tensors take :func:`strip_lanes_blocks_plain` (the plain scan,
+    doc-ordered); CUDA tensors the strip kernel's tile pass alone, writing
+    (score, doc) per lane with no keys and no row merge -- the same kept
+    (doc, score) set bit for bit, in lane order."""
+    _check_blocks(block_docs, block_impacts, bstart, bcnt, w, sent, 1, nblk,
+                  log2_run)
+    if bstart.device.type == "cpu":
+        LANES_COUNTS.plain += 1
+        return strip_lanes_blocks_plain(block_docs, block_impacts, bstart,
+                                        bcnt, w, sent, nblk=nblk,
+                                        log2_run=log2_run)
+    if bstart.device.type != "cuda":
+        raise NotImplementedError(
+            f"strip_lanes_blocks has no path for device {bstart.device}")
+    return _strip_lanes_blocks_cuda(block_docs, block_impacts, bstart, bcnt,
+                                    w, sent, nblk=nblk, log2_run=log2_run)
+
+
+def strip_lanes_blocks_plain(block_docs, block_impacts, bstart, bcnt, w,
+                             sent, *, nblk: int, log2_run: int):
+    """The plain version: :func:`strip_gather`, then the plain scan's kept
+    run ends. Returns (scores, docs, counts)."""
+    d, v = strip_gather(block_docs, block_impacts, bstart, bcnt, w, sent[0],
+                        t_pad=bstart.shape[1], nblk=nblk)
+    ds, score, ok = _strip_scan(d, v, sent[1:2], log2_run)
+    return (score, torch.where(ok, ds, sent[1:2]),
+            ok.sum(dim=1, dtype=torch.int32))
+
+
+def _strip_lanes_blocks_cuda(block_docs, block_impacts, bstart, bcnt, w,
+                             sent, *, nblk: int, log2_run: int):
+    _fn, tile_lanes, max_slots, _smem, lanes = _launcher()
+    _check_cuda_operands(block_docs, block_impacts, bstart, bcnt, w, sent,
+                         log2_run, max_slots)
+    B, t_pad = bstart.shape
+    n_tiles = _n_tiles(nblk, t_pad, tile_lanes)
+    dev = bstart.device
+    scores = torch.empty((B, n_tiles * tile_lanes), dtype=torch.float32,
+                         device=dev)
+    docs = torch.empty((B, n_tiles * tile_lanes), dtype=torch.int32,
+                       device=dev)
+    tile_counts = torch.empty((B, n_tiles), dtype=torch.int32, device=dev)
+    if B:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lanes(block_docs.data_ptr(), block_impacts.data_ptr(),
+                    bstart.data_ptr(), bcnt.data_ptr(), w.data_ptr(),
+                    sent.data_ptr(), B, t_pad, nblk, log2_run, n_tiles,
+                    scores.data_ptr(), docs.data_ptr(),
+                    tile_counts.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(f"strip_lanes launch failed: cudaError {err} "
+                               f"(B={B}, t_pad={t_pad}, nblk={nblk})")
+        LANES_COUNTS.launches += 1
+    return scores, docs, tile_counts.sum(dim=1, dtype=torch.int32)

@@ -322,3 +322,23 @@ def test_port_index_reader_is_the_port_reader(jax_written):
             pidx.reader()
         with pytest.raises(RuntimeError, match="CUDA"):
             IndexReader(pidx)
+
+
+# host modules the single-query path copied verbatim: the same source as
+# the JAX package's, up to the package name (score_functions.py and
+# script.py differ: their dense evaluators also take a torch namespace)
+VERBATIM = ["models/bm25.py", "query/datetime_util.py", "query/phrase.py",
+            "query/planner.py", "query/sort.py", "index/highlight.py"]
+
+
+@pytest.mark.parametrize("rel", VERBATIM)
+def test_copied_host_modules_match_the_jax_package(rel):
+    import os
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(repo, "searchlite_tpu", rel)) as fh:
+        jax_src = fh.read()
+    with open(os.path.join(repo, "searchlite_tpu_torch", rel)) as fh:
+        port_src = fh.read()
+    assert port_src == jax_src.replace("searchlite_tpu.",
+                                       "searchlite_tpu_torch.")

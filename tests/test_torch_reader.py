@@ -286,8 +286,9 @@ def test_python_prep_for_queries_native_prep_rejects(index):
 
 
 def test_unported_options_raise(index, monkeypatch):
-    """wand/bmw, mesh and search() are not ported; over the dense-M
-    budget, filtered and k > 1024 batches need the doc-sharded scan."""
+    """Batched wand/bmw, mesh and search()'s aggregations are not
+    ported; over the dense-M budget, filtered and k > 1024 batches need
+    the doc-sharded scan. search() itself now answers."""
     port = IndexReader(index, device="cpu")
     q = ["w1 w2"]
     for kwargs in ({"execution": "wand"}, {"execution": "bmw"},
@@ -295,7 +296,9 @@ def test_unported_options_raise(index, monkeypatch):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             port.search_batch(q, **kwargs)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.search({"query": "w1"})
+        port.search({"query": "w1", "limit": 5,
+                     "aggs": {"c": {"type": "terms", "field": "cat"}}})
+    assert port.search({"query": "w1", "limit": 5}).hits
     assert port.search_batch([], limit=5) == []
     assert port.search_batch(q, filters=[None])[0]
     monkeypatch.setenv("SEARCHLITE_M_BUDGET_BYTES", "1")

@@ -18,7 +18,11 @@ import torch
 from searchlite_tpu.ops.pallas_strip import (make_pallas_strip_core,
                                              pallas_strip_topk)
 from searchlite_tpu.ops.sparse import make_strip_prune_probe
-from searchlite_tpu_torch.ops.strip_topk import (COUNTS, strip_topk,
+from searchlite_tpu_torch.ops.strip_topk import (COUNTS, LANES_COUNTS,
+                                                 strip_lanes_blocks,
+                                                 strip_lanes_blocks_plain,
+                                                 strip_topk,
+                                                 strip_topk_blocks,
                                                  strip_topk_plain)
 
 RTOL = ATOL = 1e-6
@@ -215,3 +219,49 @@ def test_kernel_matches_plain_on_card():
     v = torch.tensor([[0.5, 1.0, 0.25, 2.0, 0.5]], device="cuda")
     with pytest.raises(NotImplementedError, match="strip_topk_blocks"):
         strip_topk(d, v, 9, k=8, log2_run=1)
+
+
+def lanes_as_set(scores, docs):
+    """{doc: score bits} of a strip's kept lanes."""
+    keep = np.isfinite(scores)
+    return dict(zip(docs[keep].tolist(),
+                    scores[keep].view(np.int32).tolist()))
+
+
+def test_lanes_match_the_top_k_at_the_strip_width():
+    """strip_lanes_blocks: every kept doc once with its score -- the set
+    strip_topk_blocks returns at k = the strip's width, bit for bit."""
+    rng = np.random.default_rng(4)
+    d, v = build_strips(rng, 6, 1024, 3000)
+    *tables, nblk = strips_to_blocks(d, v, 2999)
+    args = [torch.from_numpy(a) for a in tables]
+    ls, ld, lc = strip_lanes_blocks(*args, nblk=nblk, log2_run=2)
+    ts, td, tc = strip_topk_blocks(*args, k=nblk * 128, nblk=nblk,
+                                   log2_run=2, with_counts=True)
+    assert torch.equal(lc, tc)
+    for b in range(6):
+        got = lanes_as_set(ls[b].numpy(), ld[b].numpy())
+        assert got == lanes_as_set(ts[b].numpy(), td[b].numpy())
+        assert len(got) == int(lc[b])
+    assert int(lc[0]) == 0 and int(lc[1]) == 0
+
+
+@pytest.mark.cuda
+def test_lanes_kernel_matches_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    rng = np.random.default_rng(19)
+    for B, L in [(2, 24576), (2, 65536), (3, 8192)]:
+        d, v = build_strips(rng, B, L, 131072)
+        *tables, nblk = strips_to_blocks(d, v, 131071)
+        launches = LANES_COUNTS.launches
+        ks, kd, kc = strip_lanes_blocks(
+            *(torch.from_numpy(a).cuda() for a in tables), nblk=nblk,
+            log2_run=2)
+        assert LANES_COUNTS.launches == launches + 1
+        ps, pd, pc = strip_lanes_blocks_plain(
+            *(torch.from_numpy(a) for a in tables), nblk=nblk, log2_run=2)
+        assert torch.equal(kc.cpu(), pc)
+        for b in range(B):
+            assert lanes_as_set(ks[b].cpu().numpy(), kd[b].cpu().numpy()) \
+                == lanes_as_set(ps[b].numpy(), pd[b].numpy())
