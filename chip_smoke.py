@@ -45,6 +45,24 @@ NVIDIA GPU.
       ``tok0``-``tok3`` (past the 512-block term cap: the term split,
       whose strip pass returns every kept doc, ``strip_lanes_blocks``);
       prints the p50s, the segments and strip launches per route.
+   d. pruned execution (``ops/tiles.py``), at the default tile width
+      (T = 512, 256 tiles): the 9 single queries and the structured
+      set's filter / must_not requests with ``execution`` wand and bmw
+      and ``SEARCHLITE_PRUNE_MIN_POSTINGS=0`` (every segment defers to
+      the doc-tile pruned jobs: ``pruning_simulated`` false, postings
+      advanced <= the dense route's), once more at the default threshold;
+      the same singles with ``SEARCHLITE_M_BUDGET_BYTES`` cut to a
+      quarter of their dense M (the chunked executor, a cursor page
+      too); the b1024 x3 stream with ``execution="wand"`` (the per-query
+      path: light rows on the strip kernel), 64 head-term queries (tile
+      waves), one filtered b256 batch (the union path, ending in the
+      fused kernel) and one ``SEARCHLITE_BATCH_PRUNE=union`` batch, the
+      fused kernel then held against its plain version on each union
+      wave's own operands (one W, M [s_pad, n_sel * T], filter rows in
+      tile space; a partial 1,024-doc chunk where n_sel is odd, else the
+      first wave again less one tile);
+      prints wand and bm25 QPS, pruned, dense and chunked p50s, tiles
+      scored and waves per query.
    Every result is checked against ``bench.py``'s f64 oracle under
    ``SEARCHLITE_PRECISION=f32_strict`` (masked by the port's filter where
    there is one; result counts too; the structured set against oracles
@@ -475,9 +493,10 @@ def same_topk(ref_s, ref_i, got_s, got_i) -> float:
         else 0.0
 
 
-def check_fused_kernel(seed: int = 17):
-    """The fused kernel vs its plain version at FUSED_SHAPES. Returns a
-    list of per-shape dicts; raises on any disagreement."""
+def check_fused_call(name, w1, m1, deleted, k: int, kw, n_false=None):
+    """One fused call against the plain version on the same tensors, then
+    timed beside it. ``n_false`` names a filter row that matches nothing.
+    Returns the per-shape dict; raises on any disagreement."""
     import torch
 
     from searchlite_tpu_torch.ops.fused_topk import (
@@ -485,46 +504,117 @@ def check_fused_kernel(seed: int = 17):
         fused_topk_plain,
     )
 
+    Q, R, N = w1.shape[0], w1.shape[1], m1.shape[1]
+    w2, m2 = kw.get("w2"), kw.get("m2")
+    S = 0 if w2 is None else w2.shape[1]
+    nf = 0 if kw.get("filter_rows") is None else kw["filter_rows"].shape[0]
+    ts, td = fused_topk(w1, m1, deleted, k=k, **kw)
+    ps, pd = fused_topk_plain(w1, m1, deleted, k=k, **kw)
+    torch.cuda.synchronize()
+    ts, td, ps, pd = (x.cpu().numpy() for x in (ts, td, ps, pd))
+    try:
+        err = same_topk(ps, pd, ts, td)
+    except AssertionError as e:
+        raise AssertionError(f"fused_topk {name}: {e}") from None
+    if n_false is not None and not np.isneginf(
+            ts[kw["fidx"].cpu().numpy() == n_false]).all():
+        raise AssertionError(f"fused_topk {name}: the all-false "
+                             "filter row matched")
+    iters = 3 if Q * N > 1 << 24 else 20
+    t_kern, t_plain = time_pair(
+        lambda: fused_topk(w1, m1, deleted, k=k, **kw),
+        lambda: fused_topk_plain(w1, m1, deleted, k=k, **kw), iters)
+    # the library yardstick: one torch.matmul (TF32 off) of the score
+    # part over the concatenated operands; the port never calls it
+    wcat = torch.cat([w1, w2], 1) if S else w1
+    mcat = torch.cat([m1, m2], 0) if S else m1
+    t_lib = time_ms(lambda: torch.matmul(wcat, mcat), iters)
+    del wcat, mcat
+    bms, by = bound_ms(*fused_work(w1, m1, deleted, k, **kw))
+    row = {"name": name, "shape": [Q, R, S, N], "k": k,
+           "max_abs_err": err, "finite": int(np.isfinite(ts).sum()),
+           "ms": t_kern, "plain_ms": t_plain, "library_ms": t_lib,
+           "bound_ms": bms, "bound_by": by}
+    log(f"fused_topk {name}: Wd [{Q}, {R}] Md [{R}, {N}]"
+        + (f" + Ws [{Q}, {S}] Ms [{S}, {N}]" if S else "")
+        + (f", {nf} filter rows" if nf else "")
+        + f", k={k}: agrees ({row['finite']} finite, max abs err "
+        f"{err:.3g}); kernel {t_kern:.4f} ms, plain {t_plain:.4f} ms, "
+        f"matmul {t_lib:.4f} ms, bound {bms:.4f} ms ({by})")
+    return row
+
+
+def check_fused_kernel(seed: int = 17):
+    """The fused kernel vs its plain version at FUSED_SHAPES. Returns a
+    list of per-shape dicts; raises on any disagreement."""
+    import torch
+
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
     rows = []
     for name, Q, R, S, N, k, nf in FUSED_SHAPES:
         w1, m1, deleted, kw = fused_inputs(g, Q, R, S, N, nf)
-        ts, td = fused_topk(w1, m1, deleted, k=k, **kw)
-        ps, pd = fused_topk_plain(w1, m1, deleted, k=k, **kw)
-        torch.cuda.synchronize()
-        ts, td, ps, pd = (x.cpu().numpy() for x in (ts, td, ps, pd))
-        try:
-            err = same_topk(ps, pd, ts, td)
-        except AssertionError as e:
-            raise AssertionError(f"fused_topk {name}: {e}") from None
-        if nf and not np.isneginf(ts[kw["fidx"].cpu().numpy()
-                                     == nf - 1]).all():
-            raise AssertionError(f"fused_topk {name}: the all-false "
-                                 "filter row matched")
-        iters = 3 if Q * N > 1 << 24 else 20
-        t_kern, t_plain = time_pair(
-            lambda: fused_topk(w1, m1, deleted, k=k, **kw),
-            lambda: fused_topk_plain(w1, m1, deleted, k=k, **kw), iters)
-        # the library yardstick: one torch.matmul (TF32 off) of the score
-        # part over the concatenated operands; the port never calls it
-        wcat = torch.cat([w1, kw["w2"]], 1) if S else w1
-        mcat = torch.cat([m1, kw["m2"]], 0) if S else m1
-        t_lib = time_ms(lambda: torch.matmul(wcat, mcat), iters)
-        del wcat, mcat
-        bms, by = bound_ms(*fused_work(w1, m1, deleted, k, **kw))
-        row = {"name": name, "shape": [Q, R, S, N], "k": k,
-               "max_abs_err": err, "finite": int(np.isfinite(ts).sum()),
-               "ms": t_kern, "plain_ms": t_plain, "library_ms": t_lib,
-               "bound_ms": bms, "bound_by": by}
-        log(f"fused_topk {name}: Wd [{Q}, {R}] Md [{R}, {N}]"
-            + (f" + Ws [{Q}, {S}] Ms [{S}, {N}]" if S else "")
-            + (f", {nf} filter rows" if nf else "")
-            + f", k={k}: agrees ({row['finite']} finite, max abs err "
-            f"{err:.3g}); kernel {t_kern:.4f} ms, plain {t_plain:.4f} ms, "
-            f"matmul {t_lib:.4f} ms, bound {bms:.4f} ms ({by})")
-        rows.append(row)
+        rows.append(check_fused_call(name, w1, m1, deleted, k, kw,
+                                     n_false=nf - 1 if nf else None))
         del w1, m1, deleted, kw
+    return rows
+
+
+class FusedCalls:
+    """Records the operands the union waves hand ``fused_topk`` (the wave
+    scorer of ``ops/tiles.py`` looks the wrapper up in its module), so
+    that the kernel is held against its plain version on the tensors the
+    main path gave it. The recorder passes every call on unchanged."""
+
+    def __init__(self):
+        from searchlite_tpu_torch.ops import tiles
+
+        self.tiles = tiles
+        self.real = tiles.fused_topk
+        self.calls = []
+
+    def __enter__(self):
+        def record(w1, m1, deleted, **kw):
+            self.calls.append((w1, m1, deleted, kw))
+            return self.real(w1, m1, deleted, **kw)
+
+        self.tiles.fused_topk = record
+        return self
+
+    def __exit__(self, *exc):
+        self.tiles.fused_topk = self.real
+
+
+def check_wave_calls(name: str, calls, tile_width: int):
+    """Every recorded wave call of one batch against the plain version;
+    if none of them ended in a partial doc chunk (N an odd count of
+    ``tile_width`` = half-chunk tiles), the first once more with its last
+    tile cut off, so that shape is always held. Returns per-shape dicts."""
+    from searchlite_tpu_torch.ops.fused_topk import CHUNK
+
+    if not calls:
+        raise AssertionError(f"{name}: no wave call was recorded")
+    rows = []
+    partial = False
+    for i, (w1, m1, deleted, kw) in enumerate(calls):
+        kw = dict(kw)
+        k = kw.pop("k")
+        partial = partial or m1.shape[1] % CHUNK != 0
+        rows.append(check_fused_call(f"{name} wave {i + 1}", w1, m1,
+                                     deleted, k, kw))
+    if not partial:
+        w1, m1, deleted, kw = calls[0]
+        kw = dict(kw)
+        n = m1.shape[1] - tile_width
+        if n % CHUNK == 0 or n <= 0:
+            raise AssertionError(f"{name}: cannot cut N={m1.shape[1]} to "
+                                 "a partial chunk")
+        k = min(kw.pop("k"), n)
+        if kw.get("filter_rows") is not None:
+            kw["filter_rows"] = kw["filter_rows"][:, :n].contiguous()
+        rows.append(check_fused_call(
+            f"{name} wave 1 less one tile", w1, m1[:, :n].contiguous(),
+            deleted[:n].contiguous(), k, kw))
     return rows
 
 
@@ -765,15 +855,19 @@ def timed_search(reader, req):
     return res, (time.perf_counter() - t0) * 1000
 
 
-def check_topk_vs(scores, cand, got, count, what: str, limit: int):
+def check_topk_vs(scores, cand, got, count, what: str, limit: int,
+                  exact_count: bool = True):
     """The hits ``got`` [(doc_id, score)] and match count against oracle
     ``scores`` [n] over ``cand`` [n], the docs the request matches
     (computed on the host): every score within the f32_strict tolerance,
-    no better match left out, the count and the hit count exact."""
-    if count != int(cand.sum()):
-        raise AssertionError(f"{what}: count {count}, oracle "
-                             f"{int(cand.sum())}")
-    if len(got) != min(limit, count):
+    no better match left out, the count and the hit count exact. A pruned
+    route counts the matches of the tiles it scored: with ``exact_count``
+    false the count lies between the hits and the oracle's."""
+    n_match = int(cand.sum())
+    if (count != n_match) if exact_count else \
+            not len(got) <= count <= n_match:
+        raise AssertionError(f"{what}: count {count}, oracle {n_match}")
+    if len(got) != min(limit, n_match):
         raise AssertionError(f"{what}: {len(got)} hits")
     ids = [int(d) for d, _ in got]
     for d, s in got:
@@ -813,8 +907,9 @@ def phrase_docs(reader, first: str, second: str) -> np.ndarray:
 
 def run_singles(reader, counts):
     """Path c, part 1: bench.py's 9 single queries as default requests
-    (execution wand, limit 10) on the dense executor. Returns (launches,
-    p50 ms)."""
+    (execution wand, limit 10): the dense executor, or the doc-tile pruned
+    jobs where a segment passes ``SEARCHLITE_PRUNE_MIN_POSTINGS``. Returns
+    (launches, p50 ms)."""
     import bench
 
     queries = bench.build_queries()[0][:9]
@@ -832,14 +927,14 @@ def run_singles(reader, counts):
     routes = {k: reader.single_routes[k] - before[k] for k in before}
     if plain != 0:
         raise AssertionError("the single queries ran a plain version")
-    if routes["dense"] != len(reqs) or routes["sparse_plain"] \
-            or routes["sparse_split"]:
+    if routes["dense"] + routes["pruned"] != len(reqs):
         raise AssertionError(f"the default singles took routes {routes}")
     if not bench.verify_vs_oracle(reader, queries, results):
         raise AssertionError("a default single disagrees with the oracle")
     ms50 = p50(times)
     log(f"singles: {len(reqs)} default requests oracle-verified "
-        f"(f32_strict) on the dense executor; routes {routes}; launches "
+        f"(f32_strict), {routes['pruned']} of them deferred to the pruned "
+        f"jobs at the default threshold; routes {routes}; launches "
         f"{launches}; p50 {ms50:.3f} ms (min {min(times):.3f}, max "
         f"{max(times):.3f}) on {card_line()} (information, not a benchmark)")
     return launches, ms50
@@ -989,6 +1084,300 @@ def run_sparse_singles(reader, counts):
     return launches, per_route
 
 
+def timed_singles(reader, reqs):
+    """(results, per-request ms) of ``reqs``, each warmed once first."""
+    for req in reqs:
+        reader.search(dict(req))
+    results, times = [], []
+    for req in reqs:
+        res, ms = timed_search(reader, req)
+        results.append(res)
+        times.append(ms)
+    return results, times
+
+
+def same_hits(got, want, what: str):
+    """Two results of one request by two routes: the same docs in the same
+    order (near-ties may swap), scores within the f32_strict tolerance."""
+    g, w = hit_pairs(got), hit_pairs(want)
+    if len(g) != len(w) or got.total_hits_estimate != \
+            want.total_hits_estimate:
+        raise AssertionError(f"{what}: {len(g)} hits of "
+                             f"{got.total_hits_estimate}, want {len(w)} of "
+                             f"{want.total_hits_estimate}")
+    w_score = dict(w)
+    for (gd, gs), (wd, ws) in zip(g, w):
+        tol = ATOL + RTOL * abs(ws)
+        if abs(gs - ws) > tol or (gd != wd and (
+                gd not in w_score or abs(w_score[gd] - ws) > tol)):
+            raise AssertionError(f"{what}: hit ({gd}, {gs}), want "
+                                 f"({wd}, {ws})")
+
+
+def run_pruned_singles(reader, counts):
+    """Path d, part 1: the doc-tile pruned jobs. Returns launches."""
+    import bench
+    from searchlite_tpu_torch.api.types import Filter
+    from searchlite_tpu_torch.query.filters import compute_filters_mask
+
+    queries = bench.build_queries()[0][:9]
+    seg = reader.segments[0]
+    dense_reqs = [{"query": q, "limit": K, "execution": "bm25",
+                   "profile": True} for q in queries]
+    dense, dense_ms = timed_singles(reader, dense_reqs)
+    counts.reset()
+    os.environ["SEARCHLITE_PRUNE_MIN_POSTINGS"] = "0"
+    try:
+        p50s = {}
+        for strategy in ("wand", "bmw"):
+            reqs = [{"query": q, "limit": K, "execution": strategy,
+                     "profile": True} for q in queries]
+            before = dict(reader.single_routes)
+            stats = dict(reader.tile_stats)
+            results, times = timed_singles(reader, reqs)
+            routes = {k: reader.single_routes[k] - before[k]
+                      for k in before}
+            # warm and timed passes: two searches a request
+            per_q = {k: (reader.tile_stats[k] - stats[k])
+                     / (2 * len(reqs)) for k in stats}
+            if routes["pruned"] != 2 * len(reqs) or routes["dense"]:
+                raise AssertionError(f"{strategy} singles took {routes}")
+            if not bench.verify_vs_oracle(
+                    reader, queries, [hit_pairs(r) for r in results]):
+                raise AssertionError(f"a {strategy} single disagrees with "
+                                     "the oracle")
+            adv = []
+            for q, res, ref in zip(queries, results, dense):
+                ex = res.profile["execution"]
+                touched = ref.profile["execution"]["postings_advanced"]
+                if ex["pruning_simulated"] is not False:
+                    raise AssertionError(f"{q!r}: pruning_simulated "
+                                         f"{ex['pruning_simulated']}")
+                if not ex["postings_advanced"] <= touched:
+                    raise AssertionError(
+                        f"{q!r}: {ex['postings_advanced']} postings "
+                        f"advanced, the dense route touches {touched}")
+                if not len(res.hits) <= res.total_hits_estimate \
+                        <= ref.total_hits_estimate:
+                    raise AssertionError(f"{q!r}: count "
+                                         f"{res.total_hits_estimate}")
+                adv.append(ex["postings_advanced"] / max(touched, 1))
+            p50s[strategy] = p50(times)
+            log(f"pruned singles ({strategy}): {len(reqs)} requests "
+                f"oracle-verified (f32_strict), pruning_simulated false; "
+                f"per query {per_q['tiles_scored']:.1f} tiles scored of "
+                f"{-(-reader.device_segments[0].n1 // 512)}, "
+                f"{per_q['wave_launches']:.2f} wave launches, "
+                f"{per_q['ub_launches']:.0f} UB launch; postings advanced "
+                f"{100 * float(np.mean(adv)):.1f}% of the dense route's; "
+                f"p50 {p50s[strategy]:.3f} ms (min {min(times):.3f}, max "
+                f"{max(times):.3f}) beside dense (bm25) p50 "
+                f"{p50(dense_ms):.3f} ms on {card_line()} (information, "
+                "not a benchmark)")
+        # filter / must_not requests: exact inside the scored tiles
+        filt = {"I64Range": {"field": "bucket", "min": 2, "max": 9}}
+        fmask = compute_filters_mask(seg.fast, [Filter.from_json(filt)])
+        s57 = bench._oracle_scores(reader, "tok57")
+        cand_bool = fmask & (s57 > 0)
+        cand_bool[term_docs(reader, "tok12")] = False
+        s_root = bench._oracle_scores(reader, "tok57 tok300")
+        structured = [
+            ("bool", {"query": {
+                "type": "bool",
+                "must": [{"type": "term", "field": "body",
+                          "value": "tok57"}],
+                "must_not": [{"type": "term", "field": "body",
+                              "value": "tok12"}],
+                "filter": [filt]}, "limit": K}, s57, cand_bool),
+            ("root filter", {"query": "tok57 tok300", "limit": K,
+                             "filter": filt}, s_root,
+             fmask & (s_root > 0)),
+        ]
+        before = reader.single_routes["pruned"]
+        for name, req, scores, cand in structured:
+            for strategy in ("wand", "bmw"):
+                res = reader.search(dict(req, execution=strategy))
+                check_topk_vs(scores, cand, hit_pairs(res),
+                              res.total_hits_estimate,
+                              f"{name} ({strategy})", K, exact_count=False)
+        if reader.single_routes["pruned"] - before != 2 * len(structured):
+            raise AssertionError("a structured pruned request did not "
+                                 "defer")
+        log(f"pruned structured: bool (must, must_not, filter) and a root "
+            f"filter, wand and bmw, agree with the oracle and host masks")
+    finally:
+        del os.environ["SEARCHLITE_PRUNE_MIN_POSTINGS"]
+    # once more at the default threshold
+    before = dict(reader.single_routes)
+    results = [reader.search({"query": q, "limit": K}) for q in queries]
+    if not bench.verify_vs_oracle(reader, queries,
+                                  [hit_pairs(r) for r in results]):
+        raise AssertionError("a default single disagrees with the oracle")
+    log(f"default threshold (SEARCHLITE_PRUNE_MIN_POSTINGS=100000): "
+        f"{reader.single_routes['pruned'] - before['pruned']} of "
+        f"{len(queries)} default singles defer to the pruned jobs, "
+        f"{reader.single_routes['dense'] - before['dense']} run dense")
+    launches, plain = counts.read()
+    if plain != 0:
+        raise AssertionError("the pruned singles ran a plain version")
+    return launches
+
+
+def run_chunked_singles(reader, counts):
+    """Path d, part 2: the chunked executor, forced by a budget of a
+    quarter of the singles' dense M (s_pad 8 x n1 x 4 bytes): four chunks
+    of 64 tiles. Returns launches."""
+    import bench
+
+    queries = bench.build_queries()[0][:9]
+    reqs = [{"query": q, "limit": K, "execution": "bm25"} for q in queries]
+    dense, dense_ms = timed_singles(reader, reqs)
+    page2 = reader.search(dict(reqs[0], cursor=dense[0].next_cursor))
+    n1 = reader.device_segments[0].n1
+    counts.reset()
+    os.environ["SEARCHLITE_M_BUDGET_BYTES"] = str(8 * n1 * 4 // 4)
+    try:
+        before = dict(reader.single_routes)
+        waves = reader.tile_stats["wave_launches"]
+        chunked, times = timed_singles(reader, reqs)
+        n_chunks = (reader.tile_stats["wave_launches"] - waves) \
+            / (2 * len(reqs))
+        for q, got, want in zip(queries, chunked, dense):
+            same_hits(got, want, f"chunked {q!r}")
+        same_hits(reader.search(dict(reqs[0],
+                                     cursor=chunked[0].next_cursor)),
+                  page2, "chunked cursor page")
+        routes = {k: reader.single_routes[k] - before[k] for k in before}
+        if routes["chunked"] != 2 * len(reqs) + 1 or routes["dense"] \
+                or n_chunks < 2:
+            raise AssertionError(f"chunked singles took {routes}, "
+                                 f"{n_chunks} chunks a query")
+    finally:
+        del os.environ["SEARCHLITE_M_BUDGET_BYTES"]
+    launches, plain = counts.read()
+    if plain != 0:
+        raise AssertionError("the chunked singles ran a plain version")
+    log(f"chunked singles: {len(reqs)} requests (bm25) and a cursor page "
+        f"equal to the dense run's, {n_chunks:.0f} chunks a query; p50 "
+        f"{p50(times):.3f} ms (min {min(times):.3f}, max {max(times):.3f}) "
+        f"beside dense p50 {p50(dense_ms):.3f} ms on {card_line()} "
+        "(information, not a benchmark)")
+    return launches
+
+
+def run_batched_wand(reader, counts):
+    """Path d, part 3: batched wand. Returns (launches summed over its
+    batches, the fused kernel's per-shape rows at the union waves' own
+    operands)."""
+    import torch
+
+    import bench
+    from searchlite_tpu_torch.ops.tiles import get_tile_index
+
+    batches = bench.build_queries()
+    stream = batches[1:]
+    n_queries = sum(len(b) for b in stream)
+    total = {"strip_topk": 0, "strip_lanes": 0, "fused_topk": 0}
+    wave_rows = []
+    tile_width = get_tile_index(reader.device_segments[0]).T
+
+    def timed_stream(execution):
+        reader.search_batch_many(stream, limit=K, output="arrays",
+                                 execution=execution)  # warm
+        counts.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = reader.search_batch_many(stream, limit=K, output="arrays",
+                                       execution=execution)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches, plain = counts.read()
+        if plain != 0:
+            raise AssertionError(f"the {execution} stream ran a plain "
+                                 "version")
+        return out, n_queries / dt, launches
+
+    def add(launches):
+        for key in total:
+            total[key] += launches[key]
+
+    # the stream, bm25 then wand then wand then bm25 (means side by side)
+    rows = dict(reader.route_rows)
+    _o, bm_1, _l = timed_stream("bm25")
+    arr_out, wand_1, launches = timed_stream("wand")
+    _o, wand_2, _l = timed_stream("wand")
+    _o, bm_2, _l = timed_stream("bm25")
+    add(launches)
+    if launches["strip_topk"] <= 0:
+        raise AssertionError("the wand stream (pq path) launched no strip "
+                             "kernel for its light rows")
+    first = stream[0]
+    if not bench.verify_vs_oracle(
+            reader, first, materialize(reader, arr_out[0], len(first))):
+        raise AssertionError("the wand stream disagrees with the oracle")
+    log(f"wand stream (per-query path): {n_queries} queries, "
+        f"verify_vs_oracle true (f32_strict) on all {len(first)} queries "
+        f"of the first batch; launches {launches}; QPS wand "
+        f"{(wand_1 + wand_2) / 2:.1f} ({wand_1:.1f}, {wand_2:.1f}) beside "
+        f"bm25 {(bm_1 + bm_2) / 2:.1f} ({bm_1:.1f}, {bm_2:.1f}) on "
+        f"{card_line()} (information, not a benchmark); rows per route "
+        f"over the six calls: "
+        f"{ {k: reader.route_rows[k] - rows[k] for k in rows} }")
+
+    def batch(name, queries, filters, env, want_tiles, want_fused):
+        for key, val in env.items():
+            os.environ[key] = val
+        try:
+            reader.search_batch(queries, limit=K, filters=filters,
+                                execution="wand")  # warm
+            stats = dict(reader.tile_stats)
+            counts.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with FusedCalls() as recorded:
+                pairs = reader.search_batch(queries, limit=K,
+                                            filters=filters,
+                                            execution="wand")
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches, plain = counts.read()
+        finally:
+            for key in env:
+                del os.environ[key]
+        delta = {k: reader.tile_stats[k] - stats[k] for k in stats}
+        if plain != 0:
+            raise AssertionError(f"{name} ran a plain version")
+        if want_tiles and not (delta["ub_launches"] > 0
+                               and delta["wave_launches"] > 0):
+            raise AssertionError(f"{name} ran no tile wave: {delta}")
+        if want_fused and launches["fused_topk"] <= 0:
+            raise AssertionError(f"{name} launched no fused kernel")
+        if want_fused:
+            # the kernel against its plain version on the waves' own
+            # operands (after the counts were read: these launches do not
+            # count for the path)
+            wave_rows.extend(check_wave_calls(name, recorded.calls,
+                                              tile_width))
+        del recorded
+        verify_masked(reader, queries, filters or [None] * len(queries),
+                      pairs, K)
+        add(launches)
+        log(f"{name}: {len(queries)} queries oracle-verified (f32_strict"
+            + (", filter-masked" if filters else "") + f") in "
+            f"{dt * 1000:.1f} ms; launches {launches}; tile stats {delta} "
+            f"on {card_line()} (information, not a benchmark)")
+
+    # head-term rows are over the strips' cap: the per-query tile waves
+    batch("wand head-term b64 (per-query tile waves)",
+          split_queries(seed=19, n=64), None, {}, True, False)
+    b256 = batches[1][:256]
+    filters = [FILTERS[i % len(FILTERS)] for i in range(len(b256))]
+    batch("wand b256 filtered (union path)", b256, filters, {}, True, True)
+    batch("wand b256, SEARCHLITE_BATCH_PRUNE=union", b256, None,
+          {"SEARCHLITE_BATCH_PRUNE": "union"}, True, True)
+    return total, wave_rows
+
+
 def main() -> int:
     import torch
 
@@ -1053,8 +1442,14 @@ def main() -> int:
     single_launches, _p50 = run_singles(reader, counts)
     struct_launches = run_structured(reader, counts)
     sparse_launches, _routes = run_sparse_singles(reader, counts)
+    pruned_launches = run_pruned_singles(reader, counts)
+    chunked_launches = run_chunked_singles(reader, counts)
+    wand_launches, wave_rows = run_batched_wand(reader, counts)
+    fused_rows += wave_rows
     search_launches = {k: single_launches[k] + struct_launches[k]
-                       + sparse_launches[k] for k in single_launches}
+                       + sparse_launches[k] + pruned_launches[k]
+                       + chunked_launches[k] + wand_launches[k]
+                       for k in single_launches}
     for blocked in ("jax", "searchlite_tpu"):
         if sys.modules.get(blocked) is not None:
             raise AssertionError(f"{blocked} was imported")

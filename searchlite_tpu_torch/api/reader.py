@@ -3,7 +3,7 @@
 The port of ``searchlite_tpu/api/reader.py`` on one torch device (the
 card unless the caller asks for the CPU): single-query ``search()`` /
 ``search_scroll()``, and the batched ``search_batch`` /
-``search_batch_many`` with ``execution="bm25"``.
+``search_batch_many`` with ``execution`` bm25, wand or bmw.
 
 **Single queries** (``search``, JAX ``reader.py:810-1373``) run the
 request surface of the JAX reader -- bool / dis_max / query_string
@@ -16,33 +16,39 @@ routed per segment as the JAX reader routes them:
    (``_try_sparse_single``): the query's own posting blocks through the
    strip kernel, or the single-query term split (light terms on the
    strip, head terms by point lookup, a soundness certificate; an
-   unsound certificate falls through to 2);
-2. everything else runs the dense compiled executor
+   unsound certificate falls through);
+2. ``execution`` wand / bmw requests that are a plain score-desc top-k
+   (no cursor, collapse or custom scoring) defer every segment with at
+   least ``SEARCHLITE_PRUNE_MIN_POSTINGS`` postings touched, or over the
+   dense-M budget, to the doc-tile pruned jobs (``_run_pruned_jobs``,
+   ``ops/tiles.py``): per-tile upper bounds, a seed wave over the top
+   tiles, a survivor wave, wave-pipelined across segments. The profile
+   then reports ``pruning_simulated: false`` and the pruned route's own
+   ``postings_advanced`` and match count (over the tiles it scored). A
+   negative weight or an int32 overflow hands the segment back to 3 / 4;
+3. segments whose dense M is over its budget (``s_pad * n1 * 4`` past
+   ``SEARCHLITE_M_BUDGET_BYTES``, or past int32 indexing) run the
+   chunked tile executor (``_run_segment_chunked``): every tile scored,
+   in column chunks within the budget, stitched on the host and handed to
+   the general result path;
+4. everything else runs the dense compiled executor
    (``ops/score.py::CompiledQuery.execute``): M from the query's blocks,
    matmuls, the matcher and score trees, masks, cursor skip, count and a
    (score desc, doc asc) top-k;
-3. one device-to-host copy for every segment, then the host phase in
-   segment order (sort keys, cursors, collapse, rescore, hits).
+5. one device-to-host copy for every dense segment, then the host phase
+   in segment order (sort keys, cursors, collapse, rescore, hits).
 
-Deliberate differences from the JAX reader (ROADMAP.md queue 3):
-
-- where the JAX reader defers a segment to the doc-tile pruned jobs
-  (``execution`` wand/bmw, a plain score-desc top-k and at least
-  ``SEARCHLITE_PRUNE_MIN_POSTINGS`` postings), the port runs the dense
-  executor: exact, the same top-k, an exact count (>= the pruned
-  estimate); the profile reports ``pruning_simulated: true``;
-- segments whose dense M is over its budget (``s_pad * n1 * 4`` past
-  ``SEARCHLITE_M_BUDGET_BYTES``, or past int32 indexing), which the JAX
-  reader scores with the chunked tile executor, raise
-  ``NotImplementedError`` naming ``ops/tiles.py``; so do requests with
-  ``aggs``, vector clauses or ``mesh``, each naming its ROADMAP item.
+Requests with ``aggs``, vector clauses or ``mesh`` raise
+``NotImplementedError`` naming their ROADMAP item.
 
 ``single_routes`` counts segments per single-query route: ``dense``,
-``sparse_plain``, ``sparse_split`` and ``split_fallthrough`` (a split
-whose certificate failed; the segment then ran dense too).
+``sparse_plain``, ``sparse_split``, ``split_fallthrough`` (a split whose
+certificate failed; the segment then ran another route too), ``pruned``
+and ``chunked``. ``tile_stats`` counts the tile routes' work: UB
+launches, exact-scoring wave launches, tiles scored, per-query rounds.
 
-**Batches** (``search_batch_many``) are routed per segment by the
-dense-M estimate ``(s_pad + Q) * n1 * 4`` against
+**Batches** (``search_batch_many``) with ``execution="bm25"`` are routed
+per segment by the dense-M estimate ``(s_pad + Q) * n1 * 4`` against
 ``SEARCHLITE_M_BUDGET_BYTES``.
 
 Under the budget (``_launch_batch_segment``), with per-query filters and
@@ -67,9 +73,21 @@ term-split rows included, and rows the strips cannot certify take full
 strips holding every term. Filtered or k > 1024 batches over the budget
 need ``_search_batch_sharded``, which is not ported yet.
 
+**Batches with ``execution`` wand / bmw** take the doc-tile pruned paths
+(``SEARCHLITE_BATCH_PRUNE`` auto / pq / union): unfiltered batches the
+per-query path (``_search_batch_pruned_pq``: light rows on the candidate
+strips, head-term rows in private tile waves with the selection, the
+threshold and the running merge on the device, one bulk copy a round),
+filtered batches the union path (``_search_batch_pruned_many``: three
+waves over the union of the batch's tiles, ending in the fused kernel).
+Where every segment holds at least ``SEARCHLITE_BATCH_STRIP_MIN_DOCS``
+docs, auto mode treats wand / bmw as hints and runs the bm25 routes.
+``route_rows`` counts rows per route: ``strip``, ``split``, ``dense``,
+``fallback`` and ``tiles`` (rows scored in tile waves).
+
 Every route is exact, so results match the JAX reader whichever route it
-took (scores to f32 reassociation, divergence D10). Batched ``wand``/
-``bmw`` and ``mesh`` are not ported yet and raise ``NotImplementedError``.
+took (scores to f32 reassociation, divergence D10). ``mesh`` is not ported
+yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -110,6 +128,8 @@ from searchlite_tpu_torch.ops.impact import (
     build_block_tables,
     build_impact_batch,
     build_impact_batch_native,
+    csr_row_lengths,
+    csr_take_rows,
     ensure_dense_tables,
     next_pow2,
     pow15_bucket,
@@ -130,6 +150,17 @@ from searchlite_tpu_torch.query.filters import (
 from searchlite_tpu_torch.query.parser import parse_query
 from searchlite_tpu_torch.device.index import cached_segment
 from searchlite_tpu_torch.ops.impact import impact_scorer, split_impact_scorer
+from searchlite_tpu_torch.ops.tiles import (
+    gather_cols,
+    get_tile_index,
+    pow4_bucket,
+    pq_run_scorer,
+    run_batch_scorer,
+    seed_select,
+    tile_cols,
+    topk_merge,
+    ub_scorer,
+)
 from searchlite_tpu_torch.ops.sparse import (
     group_gather,
     group_gather_sound,
@@ -147,6 +178,11 @@ FLAT_INDEX_LIMIT = 2**31
 MAX_CANDIDATE_SIZE = 20_000
 MAX_CURSOR_ADVANCE = 50_000
 MAX_SUGGEST_CANDIDATES = 256
+# tile-space fills of the executor's doc-axis inputs past n1: phrase
+# masks, filter masks, column values, column presence, the root mask
+MASK_FILLS = (False, False, 0.0, False, False)
+# the executor's weight inputs, as ``_segment_query_args`` names them
+WEIGHT_KEYS = ("w_leaf", "leaf_ind", "group_ind")
 CURSOR_VERSION = 3
 
 # compiled plans, shared by every reader (commits reopen readers), keyed
@@ -325,7 +361,8 @@ class IndexReader:
     ``route_rows`` counts the rows each route scored (``strip``: light
     rows on plain strips, ``split``: term-split rows with a head term,
     ``dense``: rows through the dense scorers, fallback waves included,
-    ``fallback``: unsound term-split rows re-scored dense)."""
+    ``fallback``: unsound term-split rows re-scored dense, ``tiles``: rows
+    scored in doc-tile waves)."""
 
     def __init__(self, index, device="cuda"):
         self.device = torch.device(device)
@@ -367,9 +404,12 @@ class IndexReader:
         self._token_cache: dict = {}
         self._split_fallback_rows = 0
         self.route_rows = {"strip": 0, "split": 0, "dense": 0,
-                           "fallback": 0}
+                           "fallback": 0, "tiles": 0}
         self.single_routes = {"dense": 0, "sparse_plain": 0,
-                              "sparse_split": 0, "split_fallthrough": 0}
+                              "sparse_split": 0, "split_fallthrough": 0,
+                              "pruned": 0, "chunked": 0}
+        self.tile_stats = {"ub_launches": 0, "wave_launches": 0,
+                           "tiles_scored": 0, "rounds": 0}
 
     # -- term expansion (host, over per-segment dictionaries) ----------------
 
@@ -811,10 +851,21 @@ class IndexReader:
 
         # phase 1 -- launch: per-segment host prep and device work; nothing
         # waits for the card until the one bulk fetch below (the sparse
-        # single route fetches its own small result to read its
-        # certificate)
+        # single route, the pruned jobs and the chunked executor fetch
+        # their own results)
         needs_mask = not score_fast_path or req.collapse is not None
         use_cursor = cursor_key is not None and score_fast_path
+        # doc-tile pruning (ops/tiles.py) is sound only for a plain
+        # score-desc top-k: custom scoring breaks the BM25 upper bound,
+        # cursors need the cursor doc's exact score present
+        prune_min = int(os.environ.get(
+            "SEARCHLITE_PRUNE_MIN_POSTINGS", 100_000))
+        pruning_ok = (req.execution in ("wand", "bmw")
+                      and score_fast_path and req.return_hits
+                      and cursor_state is None and req.collapse is None
+                      and not compiled.needs_hook and has_scored)
+        pruning_real = False
+        pruning_simulated = False
         sparse_single_ok = (
             score_fast_path and req.return_hits
             and cursor_state is None and req.collapse is None
@@ -826,6 +877,28 @@ class IndexReader:
         m_budget = int(os.environ.get("SEARCHLITE_M_BUDGET_BYTES",
                                       2 * 1024**3))
         pending = []  # (dseg, qargs, device tensors to fetch)
+        pruned_jobs = []  # deferred doc-tile pruned segments
+
+        def launch_dense(dseg, qargs, masks, cs, eq_mode, cdoc, k):
+            (top_scores, top_idx, match_count, final_mask, adjusted,
+             cursor_seen, _text_mask) = self._run_dense(
+                dseg, compiled, qargs, *masks, cs, eq_mode, cdoc, k=k,
+                has_scored=has_scored, need_scores=need_scores,
+                use_cursor=use_cursor)
+            self.single_routes["dense"] += 1
+            fetch = [top_scores, top_idx, match_count, cursor_seen]
+            if needs_mask:
+                fetch.append(final_mask)
+            if need_scores and not score_fast_path:
+                fetch.append(adjusted)
+            return (dseg, qargs, fetch)
+
+        def run_chunked(dseg, qargs, masks):
+            qargs["_chunked_pre"] = self._run_segment_chunked(
+                dseg, compiled, qargs, *masks, has_scored, need_scores)
+            self.single_routes["chunked"] += 1
+            return (dseg, qargs, [])
+
         for dseg in self.device_segments:
             seg = dseg.reader
             if seg.doc_count == 0:
@@ -834,21 +907,17 @@ class IndexReader:
                 dseg, qualified, group_keys, compiled.n_leaves,
                 compiled.n_groups)
             k = min(max(top_k, 1), dseg.n1)
+            # the sparse single route goes first: where it applies it is
+            # one dispatch and one fetch; on a certificate fall-through
+            # the tile path or the dense executor still runs
             if sparse_single_ok:
                 sp = self._try_sparse_single(dseg, qargs, k)
                 if sp is not None:
-                    qargs["_sparse_pre"] = sp
+                    qargs["_pruned_pre"] = sp
                     pending.append((dseg, qargs, []))
                     continue
-            if qargs["overflow"] or qargs["s_pad"] * dseg.n1 * 4 > m_budget:
-                raise _not_ported(
-                    "single-query segments whose dense M is over "
-                    "SEARCHLITE_M_BUDGET_BYTES (the chunked tile executor)",
-                    "pruned execution, ops/tiles.py")
-            # where the JAX reader would run a doc-tile pruned job (wand/
-            # bmw, >= SEARCHLITE_PRUNE_MIN_POSTINGS postings), the dense
-            # executor runs: exact, the same top-k (ops/tiles.py is not
-            # ported)
+            oversize = (qargs["overflow"]
+                        or qargs["s_pad"] * dseg.n1 * 4 > m_budget)
             phrase_masks = self._segment_phrase_masks(
                 seg, plan.phrase_specs, n1=dseg.n1)
             filter_masks = self._segment_filter_masks(
@@ -860,6 +929,20 @@ class IndexReader:
                 root_mask[:seg.doc_count] = compute_filters_mask(
                     seg.fast, [req.filter])
                 root_mask[seg.doc_count:] = False
+            masks = (phrase_masks, filter_masks, col_vals, col_has,
+                     root_mask)
+            if pruning_ok and qargs["n_slots"] > 0 \
+                    and (oversize
+                         or qargs["postings_touched"] >= prune_min):
+                # deferred: pruned segments run wave-pipelined together
+                # after this loop (3 bulk fetches in all, not 3 a segment)
+                pruned_jobs.append((dseg, qargs, *masks, k, oversize))
+                continue
+            if oversize:
+                # the dense M does not fit: exact chunked tile execution,
+                # results flow through the general (host) branch
+                pending.append(run_chunked(dseg, qargs, masks))
+                continue
             if use_cursor:
                 cs = float(cursor_key.parts[0])
                 if dseg.ord < cursor_key.segment_ord:
@@ -870,19 +953,28 @@ class IndexReader:
                     eq_mode, cdoc = 2, 0
             else:
                 cs, eq_mode, cdoc = 0.0, 2, 0
-            (top_scores, top_idx, match_count, final_mask, adjusted,
-             cursor_seen, _text_mask) = self._run_dense(
-                dseg, compiled, qargs, phrase_masks, filter_masks,
-                col_vals, col_has, root_mask, cs, eq_mode, cdoc, k=k,
-                has_scored=has_scored, need_scores=need_scores,
-                use_cursor=use_cursor)
-            self.single_routes["dense"] += 1
-            fetch = [top_scores, top_idx, match_count, cursor_seen]
-            if needs_mask:
-                fetch.append(final_mask)
-            if need_scores and not score_fast_path:
-                fetch.append(adjusted)
-            pending.append((dseg, qargs, fetch))
+            pending.append(launch_dense(dseg, qargs, masks, cs, eq_mode,
+                                        cdoc, k))
+
+        if pruned_jobs:
+            results = self._retry_oom(
+                lambda: self._run_pruned_jobs(
+                    [job[:8] for job in pruned_jobs], compiled,
+                    has_scored, need_scores,
+                    bmw_block_size=req.bmw_block_size))
+            for job, pre in zip(pruned_jobs, results):
+                dseg, qargs = job[0], job[1]
+                masks, k, oversize = job[2:7], job[7], job[8]
+                if pre is not None:
+                    qargs["_pruned_pre"] = pre
+                    pruning_real = True
+                    self.single_routes["pruned"] += 1
+                    pending.append((dseg, qargs, []))
+                elif oversize:
+                    pending.append(run_chunked(dseg, qargs, masks))
+                else:
+                    pending.append(launch_dense(dseg, qargs, masks, 0.0, 2,
+                                                0, k))
 
         # one device-to-host copy for everything every segment needs
         flat_vals = _fetch([t for _d, _q, fetch in pending for t in fetch])
@@ -894,11 +986,20 @@ class IndexReader:
             fetched = flat_vals[vals_cursor:vals_cursor + len(fetch)]
             vals_cursor += len(fetch)
             mask_np = adjusted_np = None
-            if "_sparse_pre" in qargs:
+            if "_pruned_pre" in qargs:
+                # the sparse single route or a doc-tile pruned job: done
                 top_scores_np, top_idx_np, match_count, real_postings = \
-                    qargs["_sparse_pre"]
+                    qargs["_pruned_pre"]
                 cursor_seen = False
                 stats["postings_advanced"] += real_postings
+            elif "_chunked_pre" in qargs:
+                # chunked tile execution: host arrays, general branch
+                mask_full, adjusted_np = qargs["_chunked_pre"]
+                mask_np = mask_full[:seg.doc_count]
+                top_scores_np = top_idx_np = None
+                match_count = int(mask_np.sum())
+                cursor_seen = False
+                stats["postings_advanced"] += qargs["postings_touched"]
             else:
                 top_scores_np, top_idx_np, match_count, cursor_seen = \
                     fetched[:4]
@@ -908,13 +1009,16 @@ class IndexReader:
                     cursor += 1
                 if need_scores and not score_fast_path:
                     adjusted_np = fetched[cursor]
-                # postings telemetry: for wand/bmw the counterfactual
-                # postings a block-max pruned traversal would touch
+                # postings telemetry: for wand/bmw on requests where real
+                # pruning is off (cursors, hooks, small segments), the
+                # COUNTERFACTUAL postings a block-max pruned traversal
+                # would touch, flagged pruning_simulated in the profile
                 if req.profile and req.execution in ("wand", "bmw") \
                         and score_fast_path and req.return_hits:
                     stats["postings_advanced"] += self._pruned_postings(
                         dseg, qargs, top_scores_np, req.limit,
                         req.execution)
+                    pruning_simulated = True
                 else:
                     stats["postings_advanced"] += \
                         qargs["postings_touched"]
@@ -922,7 +1026,7 @@ class IndexReader:
             if use_cursor and bool(cursor_seen):
                 saw_cursor = True
 
-            if score_fast_path:
+            if score_fast_path and "_chunked_pre" not in qargs:
                 total_matches += int(match_count)
                 stats["scored_docs"] += int(match_count)
                 stats["candidates_examined"] += int(match_count)
@@ -1062,9 +1166,10 @@ class IndexReader:
             timings["search_ms"] = search_ms
             execution_stats = dict(stats)
             if req.execution in ("wand", "bmw"):
-                # postings_advanced is the counterfactual model here (the
-                # doc-tile pruned path is not ported), so always simulated
-                execution_stats["pruning_simulated"] = True
+                # postings_advanced is a measurement where the doc-tile
+                # pruned path ran, a counterfactual model otherwise
+                execution_stats["pruning_simulated"] = (
+                    pruning_simulated or not pruning_real)
             profile = {
                 "execution": execution_stats,
                 "rescore": dict(rescore_stats) if req.rescore else None,
@@ -1096,6 +1201,251 @@ class IndexReader:
             up(col_vals), up(col_has), up(root_mask), cs, eq_mode, cdoc,
             k=k, s_pad=qargs["s_pad"], has_scored_terms=has_scored,
             need_scores=need_scores, use_cursor=use_cursor)
+
+    # -- doc-tile pruned single queries (ops/tiles.py) ------------------------
+
+    def _run_pruned_jobs(self, jobs, compiled, has_scored: bool,
+                         need_scores: bool, bmw_block_size=None):
+        """Doc-tile pruned single-query execution (JAX
+        ``_run_pruned_jobs``), wave-pipelined across segments: wave 1
+        bounds every tile's best-possible score with one small matmul per
+        segment, then at most two exact-scoring waves over compacted tile
+        columns -- at most three bulk device-to-host copies for all
+        segments together.
+
+        Exact: the same top-k as the dense executor, sound under any
+        matcher / filter / phrase because masks only shrink the match set
+        and every doc of a scored tile is evaluated with ALL its postings.
+
+        ``jobs``: (dseg, qargs, phrase_masks, filter_masks, col_vals,
+        col_has, root_mask, k) each. Returns per job (scores [k], docs
+        [k], match_count, postings_touched), or None (the caller falls
+        back to the dense or the chunked executor for that segment)."""
+        tile_width = None
+        if bmw_block_size:
+            tile_width = max(128, -(-int(bmw_block_size) // 128) * 128)
+        seed_env = int(os.environ.get("SEARCHLITE_SEED_TILES", 0))
+        up = self._upload
+
+        # wave 1: per-tile upper bounds (one launch per segment)
+        state: list[dict] = []
+        for (dseg, qargs, *_masks, _k) in jobs:
+            if bool((qargs["w_leaf"] < 0).any()):
+                # negative boosts break the upper bound
+                state.append({"fallback": True})
+                continue
+            tl = get_tile_index(dseg, tile_width)
+            tids = qargs["slot_tids"][:qargs["n_slots"]]
+            s_pad = qargs["s_pad"]
+            # UB weights = column sums of w_leaf: >= any sum / dis-max
+            # (tie_breaker <= 1) expression over non-negative leaves
+            wsum = qargs["w_leaf"].sum(axis=0).astype(np.float32)
+            nz = np.flatnonzero(wsum > 0)
+            w_pad = next_pow2(max(len(nz), 8))
+            w_idx = np.arange(w_pad, dtype=np.int32) + s_pad
+            w_idx[:len(nz)] = nz
+            w_val = np.zeros(w_pad, dtype=np.float32)
+            w_val[:len(nz)] = wsum[nz]
+            blk_idx, slot_row, _ = tl.ub_block_tables(tids)
+            ub_ref = ub_scorer(
+                tl.tile_docs, tl.tile_maxes, up(blk_idx), up(slot_row),
+                up(w_idx), up(w_val), n_t1=tl.n_tiles + 1, s_pad=s_pad,
+                n_queries=1)
+            self.tile_stats["ub_launches"] += 1
+            state.append({"tl": tl, "tids": tids, "ub_ref": ub_ref})
+
+        ub_vals = iter(_fetch([st["ub_ref"] for st in state
+                               if "ub_ref" in st]))
+
+        def launch_wave(job, st, tiles):
+            """One exact-scoring wave as budgeted chunk launches: a list
+            of (tiles_chunk, refs, postings), or None on int32 overflow
+            (dense / chunked fallback)."""
+            dseg, qargs = job[0], job[1]
+            k = job[7]
+            tl = st["tl"]
+            s_pad = qargs["s_pad"]
+            overflow = []
+
+            def launch_one(chunk):
+                chunk = np.asarray(chunk)
+                runs = tl.run_tables(st["tids"], chunk)
+                n_cols = runs["n_cols"]
+                # the guard of the JAX wave (its tile count padded to a
+                # power of two), so both readers fall back together
+                if s_pad * next_pow2(len(chunk)) * tl.T + runs["p_pad"] \
+                        >= 2**31:
+                    overflow.append(True)
+                    return None
+                flat = dseg.flat_postings()
+                if "inputs" not in st:
+                    # the weights and the doc-axis inputs go up once a
+                    # job, as on the dense route; each wave gathers its
+                    # tiles' columns on the device
+                    st["inputs"] = (
+                        [up(qargs[key]) for key in WEIGHT_KEYS],
+                        [up(x) for x in job[2:7]])
+                weights, masks = st["inputs"]
+                tiles_dev = up(chunk.astype(np.int32))
+                cols, oob = tile_cols(tiles_dev, tl.T, dseg.n1)
+                refs = compiled.tile_execute(
+                    flat["docs_flat"], flat["impacts_flat"],
+                    tl.deleted_tiles, tiles_dev, up(runs["packed"]),
+                    *weights,
+                    *(gather_cols(x, cols, oob, fill)
+                      for x, fill in zip(masks, MASK_FILLS)),
+                    k=min(k, n_cols), s_pad=s_pad, n_cols=n_cols,
+                    n_post=runs["postings"],
+                    fmt=runs["packed_fmt"], has_scored_terms=has_scored,
+                    need_scores=need_scores)
+                self.tile_stats["wave_launches"] += 1
+                return (chunk, refs, runs["postings"])
+
+            out = []
+            for chunk in self._plan_wave_chunks(tl, st["tids"], tiles,
+                                                s_pad):
+                out.extend(self._launch_chunk_retrying(chunk, launch_one))
+                if overflow:
+                    return None
+            return out
+
+        # wave 2: seed tiles (the top-C by bound)
+        for job, st in zip(jobs, state):
+            if "ub_ref" not in st:
+                continue
+            tl = st["tl"]
+            k = job[7]
+            ub = next(ub_vals)[0, :tl.n_tiles]
+            st["ub"] = ub
+            seed_c = min(seed_env or max(4, -(-4 * k // tl.T)),
+                         tl.n_tiles)
+            if seed_c < tl.n_tiles:
+                part = np.argpartition(-ub, seed_c - 1)[:seed_c]
+            else:
+                part = np.arange(tl.n_tiles)
+            tiles = np.unique(part[ub[part] > 0.0])
+            if len(tiles) == 0:
+                st["result"] = (np.full(k, -np.inf, dtype=np.float32),
+                                np.zeros(k, dtype=np.int64), 0, 0)
+                continue
+            launched = launch_wave(job, st, tiles)
+            if launched is None:
+                st.clear()
+                st["fallback"] = True
+                continue
+            st["wave"] = launched
+            st["scored"] = np.zeros(tl.n_tiles, dtype=bool)
+            st["scores"] = []
+            st["docs"] = []
+            st["mc"] = 0
+            st["postings"] = 0
+
+        # fetch wave 2, compute survivors, wave 3, finalize
+        for wave_i in range(2):
+            flat_refs = [x for st in state if "wave" in st
+                         for _t, refs, _p in st["wave"] for x in refs]
+            if not flat_refs:
+                break
+            vals = iter(_fetch(flat_refs))
+            for job, st in zip(jobs, state):
+                if "wave" not in st:
+                    continue
+                launched = st.pop("wave")
+                tl = st["tl"]
+                k = job[7]
+                for tiles, _refs, postings in launched:
+                    ts = next(vals)
+                    ti = next(vals)
+                    mc = next(vals)
+                    st["scores"].append(ts)
+                    st["docs"].append(tl.map_ids(tiles, ti))
+                    st["mc"] += int(mc)
+                    st["postings"] += postings
+                    st["scored"][tiles] = True
+                    self.tile_stats["tiles_scored"] += len(tiles)
+                merged = np.concatenate(st["scores"])
+                valid = merged > -np.inf
+                theta = (np.partition(merged[valid], -k)[-k]
+                         if int(valid.sum()) >= k else -np.inf)
+                surv = (st["ub"] >= theta) & (st["ub"] > 0.0) \
+                    & ~st["scored"]
+                extra = np.flatnonzero(surv)
+                if wave_i == 0 and len(extra):
+                    launched = launch_wave(job, st, extra)
+                    if launched is None:
+                        st.clear()
+                        st["fallback"] = True
+                        continue
+                    st["wave"] = launched
+                    continue
+                # finalize: the exact merged top-k
+                scores_cat = np.concatenate(st["scores"])
+                docs_cat = np.concatenate(st["docs"])
+                order = np.lexsort((docs_cat, -scores_cat))[:k]
+                out_s = np.full(k, -np.inf, dtype=np.float32)
+                out_d = np.zeros(k, dtype=np.int64)
+                out_s[:len(order)] = scores_cat[order]
+                out_d[:len(order)] = docs_cat[order]
+                st["result"] = (out_s, out_d, st["mc"], st["postings"])
+
+        return [st.get("result") for st in state]
+
+    def _run_segment_chunked(self, dseg, compiled, qargs, phrase_masks,
+                             filter_masks, col_vals, col_has, root_mask,
+                             has_scored: bool, need_scores: bool):
+        """Exact full execution in tile-column chunks (JAX
+        ``_run_segment_chunked``) for segments whose dense [S, n1] impact
+        matrix would pass int32 indexing or the memory budget. Every tile
+        is scored (no pruning); the per-column mask and adjusted outputs
+        are stitched back into doc-space host arrays and flow through the
+        general result path. Returns (mask [n1] bool, adjusted [n1] f32)."""
+        tl = get_tile_index(dseg)
+        s_pad = qargs["s_pad"]
+        budget = int(os.environ.get(
+            "SEARCHLITE_M_BUDGET_BYTES", 2 * 1024**3))
+        max_cols = max(min(budget // (max(s_pad, 1) * 4),
+                           (2**31 - 1) // (s_pad + 2)), tl.T)
+        tiles_per_chunk = max(1, max_cols // tl.T)
+        tids = qargs["slot_tids"][:qargs["n_slots"]]
+        flat = dseg.flat_postings()
+        up = self._upload
+        # the doc-axis inputs and the weights go up once; each chunk
+        # gathers its tiles' columns on the device
+        masks = [up(x) for x in (phrase_masks, filter_masks, col_vals,
+                                 col_has, root_mask)]
+        weights = [up(qargs[key]) for key in WEIGHT_KEYS]
+
+        launches = []  # (lo_col, n_cols, refs)
+        for start in range(0, tl.n_tiles, tiles_per_chunk):
+            stop = min(start + tiles_per_chunk, tl.n_tiles)
+            tiles = np.arange(start, stop, dtype=np.int64)
+            runs = tl.run_tables(tids, tiles)
+            n_cols = runs["n_cols"]
+            tiles_dev = up(tiles.astype(np.int32))
+            cols, oob = tile_cols(tiles_dev, tl.T, dseg.n1)
+            refs = compiled.tile_mask_execute(
+                flat["docs_flat"], flat["impacts_flat"], tl.deleted_tiles,
+                tiles_dev, up(runs["packed"]), *weights,
+                *(gather_cols(x, cols, oob, fill)
+                  for x, fill in zip(masks, MASK_FILLS)),
+                s_pad=s_pad, n_cols=n_cols, n_post=runs["postings"],
+                fmt=runs["packed_fmt"],
+                has_scored_terms=has_scored, need_scores=need_scores)
+            self.tile_stats["wave_launches"] += 1
+            launches.append((start * tl.T, n_cols, refs))
+
+        vals = iter(_fetch([x for _lo, _n, refs in launches
+                            for x in refs[:2]]))
+        n1 = dseg.n1
+        mask_np = np.zeros(n1, dtype=bool)
+        adjusted_np = np.zeros(n1, dtype=np.float32)
+        for lo, n_cols, _refs in launches:
+            fm = next(vals)
+            adj = next(vals)
+            hi = min(lo + n_cols, n1)
+            mask_np[lo:hi] = fm[:hi - lo]
+            adjusted_np[lo:hi] = adj[:hi - lo]
+        return mask_np, adjusted_np
 
     def _pruned_postings(self, dseg, qargs, top_scores_np,
                          limit: int, strategy: str) -> int:
@@ -1748,10 +2098,7 @@ class IndexReader:
         row's matches and limit (the JAX reader's contract)."""
         if limit <= 0:
             raise QueryError("limit must be > 0")
-        if execution in ("wand", "bmw"):
-            raise _not_ported(f"execution={execution!r}",
-                              "pruned execution (wand and bmw)")
-        if execution != "bm25":
+        if execution not in ("bm25", "wand", "bmw"):
             raise QueryError(f"unknown execution strategy `{execution}`")
         if output not in ("pairs", "arrays"):
             raise QueryError(f"unknown output form `{output}`")
@@ -1762,16 +2109,43 @@ class IndexReader:
         limits = self._check_batch_limits(batches, limit, limits)
         filter_tables = self._batch_filter_tables(batches, filters)
         coalesced = self._coalesce(batches, limit, fields, limits, output,
-                                   filter_tables)
+                                   filter_tables, execution)
         if coalesced is not None:
             return coalesced
+        if execution in ("wand", "bmw"):
+            # per-query pruning is the default batched pruned path (union
+            # waves degrade to a dense scan on Zipf batches); filtered
+            # batches keep the union path, whose run scorer applies
+            # per-query filter rows. wand / bmw are execution HINTS with
+            # the same exact top-k: where every segment holds at least
+            # SEARCHLITE_BATCH_STRIP_MIN_DOCS docs, auto mode routes them
+            # through the strip / dense scorers below; =pq pins the tile
+            # path whatever the corpus size (as in the JAX reader, any
+            # value but auto and union reads as pq).
+            mode = os.environ.get("SEARCHLITE_BATCH_PRUNE", "auto")
+            has_filters = any(f[0] is not None for f in filter_tables)
+            strip_min = int(os.environ.get(
+                "SEARCHLITE_BATCH_STRIP_MIN_DOCS", "2000000"))
+            live = [d for d in self.device_segments
+                    if d.reader.doc_count > 0]
+            strip_route = (mode == "auto" and not has_filters and live
+                           and all(d.n1 >= strip_min for d in live))
+            if not strip_route:
+                if mode != "union" and not has_filters:
+                    return self._retry_oom(
+                        lambda: self._search_batch_pruned_pq(
+                            batches, limit, fields, limits, output=output))
+                return self._retry_oom(
+                    lambda: self._search_batch_pruned_many(
+                        batches, limit, fields, filter_tables, limits,
+                        output=output))
         # memory budget of the dense M + score matrices on one device;
         # past it a segment takes the oversized-corpus strip route
         m_budget = int(os.environ.get("SEARCHLITE_M_BUDGET_BYTES",
                                       2 * 1024**3))
 
         # phase 1: prep + enqueue every batch and segment
-        analyzed_all = None
+        analyzed_box = [None]  # Python analysis only if native rejects
         launches = []  # per batch: [(seg_ord, scores, ids)]
         pending_recs = []  # term-split soundness checks (+ bi/li)
         for bi, (queries, (fidx, distinct), blimits) in enumerate(
@@ -1782,16 +2156,8 @@ class IndexReader:
                 seg = dseg.reader
                 if seg.doc_count == 0:
                     continue
-                qb = build_impact_batch_native(
-                    seg, dseg.host, queries, fields, self.analysis,
-                    self.schema, lazy_tables=True)
-                if qb is None:
-                    if analyzed_all is None:
-                        analyzed_all = self._analyze_batches(batches,
-                                                             fields)
-                    qb = build_impact_batch(seg, dseg.host,
-                                            analyzed_all[bi],
-                                            lazy_tables=True)
+                qb = self._qb_lazy_native(seg, dseg, batches, bi, fields,
+                                          analyzed_box)
                 k = min(k_batch, dseg.n1)
                 pend: list = []
                 est_bytes = (qb["s_pad"] + len(queries)) * dseg.n1 * 4
@@ -1915,7 +2281,7 @@ class IndexReader:
         return rows_dev
 
     def _coalesce(self, batches, limit, fields, limits, output,
-                  filter_tables):
+                  filter_tables, execution: str = "bm25"):
         """Micro-batch coalescing (JAX ``reader.py:2254-2308``): re-chunk
         a stream of narrow filterless batches into launches of up to
         ``SEARCHLITE_BATCH_COALESCE`` queries and split the results back
@@ -1939,8 +2305,8 @@ class IndexReader:
         merged = [[q for b in batches[s:e] for q in b] for s, e in groups]
         merged_limits = [np.concatenate(limits[s:e]) for s, e in groups]
         outs = self.search_batch_many(
-            merged, limit=limit, fields=fields, limits=merged_limits,
-            output=output)
+            merged, limit=limit, fields=fields, execution=execution,
+            limits=merged_limits, output=output)
         split: list = []
         for (s, e), gout in zip(groups, outs):
             row = 0
@@ -2312,6 +2678,486 @@ class IndexReader:
             host[pos] = sc
             host[pos + 1] = ids
 
+    # -- batched doc-tile pruning (execution wand / bmw) ---------------------
+
+    def _qb_lazy_native(self, seg, dseg, batches, bi, fields, analyzed_box,
+                        lazy_tables: bool = True):
+        """One (batch, segment) qb through the native prep, falling back
+        to Python analysis (computed once for the whole stream, cached in
+        ``analyzed_box[0]``) when the native side rejects the batch."""
+        qb = build_impact_batch_native(
+            seg, dseg.host, batches[bi], fields, self.analysis,
+            self.schema, lazy_tables=lazy_tables)
+        if qb is None:
+            if analyzed_box[0] is None:
+                analyzed_box[0] = self._analyze_batches(batches, fields)
+            qb = build_impact_batch(seg, dseg.host, analyzed_box[0][bi],
+                                    lazy_tables=lazy_tables)
+        return qb
+
+    def _search_batch_pruned_pq(self, batches, limit: int, fields, limits,
+                                output: str = "pairs"):
+        """PER-QUERY doc-tile pruned batch execution (JAX
+        ``_search_batch_pruned_pq``). Every query keeps a PRIVATE
+        candidate space: its top-C tiles by upper bound, scored in a
+        compacted [Q*tpq, C*T] matrix built from per-(query, term, tile)
+        posting runs (``TileIndex.run_tables_per_query``, one packed
+        upload a wave), then survivor rounds until no tile with UB >= the
+        query's threshold is left unprocessed. Light rows (their block
+        span under ``SEARCHLITE_WAND_SPARSE_BLOCKS``) skip the tile
+        machinery and ride the candidate strips.
+
+        Seed selection, the threshold, the running top-k merge and the
+        doc-id mapping stay on the device: the host only sees [Q, C] tile
+        ids per wave. Waves are pipelined across all (batch, segment) work
+        items: one bulk copy per wave round."""
+        up = self._upload
+        analyzed_box = [None]
+        sparse_cap = int(os.environ.get(
+            "SEARCHLITE_WAND_SPARSE_BLOCKS",
+            os.environ.get("SEARCHLITE_SPARSE_MAX_BLOCKS", "512")))
+
+        # wave 0: UB launches for every (batch, segment)
+        items: list[_PqItem] = []
+        for bi in range(len(batches)):
+            for dseg in self.device_segments:
+                seg = dseg.reader
+                if seg.doc_count == 0:
+                    continue
+                it = _PqItem()
+                it.bi = bi
+                it.dseg = dseg
+                it.tl = get_tile_index(dseg)
+                it.qb = self._qb_lazy_native(
+                    seg, dseg, batches, bi, fields, analyzed_box)
+                q = it.qb["n_queries"]
+                it.k = min(int(limits[bi].max()) if len(limits[bi])
+                           else limit, dseg.n1)
+                lims = np.minimum(limits[bi], it.k)
+                items.append(it)
+                if it.qb["n_slots"] == 0:
+                    it.done = True
+                    continue
+                # light queries skip the tile machinery: the candidate
+                # strips gather ONLY their own postings; only the heavy
+                # (head-term) remainder runs tile waves
+                launched = None
+                if sparse_cap > 0 and it.k <= MAX_STRIP_K:
+                    launched = self._sparse_light_launch(
+                        dseg, it.qb, it.k, sparse_cap)
+                if launched is not None:
+                    ts, td, part = launched
+                    it.sparse = (ts, td, part["light_idx"])
+                    heavy_idx = part["heavy_idx"]
+                    if len(heavy_idx) == 0:
+                        it.done = True
+                        continue
+                    it.hmap = heavy_idx
+                    it.qb = subset_impact_batch(it.qb, heavy_idx)
+                    q = it.qb["n_queries"]
+                    lims = np.full(q, it.k, dtype=np.int64)
+                    lims[:len(heavy_idx)] = np.minimum(
+                        limits[bi][heavy_idx], it.k)
+                it.lims = up(lims.astype(np.int32))
+                # per-query term / weight tables from the qb's slot CSR
+                # (rows are slot-ascending)
+                ensure_dense_tables(it.qb)  # qb was built lazily
+                tids = it.qb["slot_tids"]
+                counts = csr_row_lengths(it.qb)
+                all_q = np.arange(q, dtype=np.int64)
+                idx, sc, pos = csr_take_rows(it.qb["qs_start"], counts,
+                                             all_q)
+                tpq = int(sc.max()) if len(sc) else 1
+                it.tpq_pad = next_pow2(max(tpq, 2))
+                q_tids = np.full((q, it.tpq_pad), -1, dtype=np.int64)
+                w_b = np.zeros((q, it.tpq_pad), dtype=np.float32)
+                rows_rep = np.repeat(all_q, sc)
+                q_tids[rows_rep, pos] = tids[it.qb["qs_slot"][idx]]
+                w_b[rows_rep, pos] = it.qb["qs_w"][idx]
+                it.q_tids = q_tids
+                it.w_b = up(w_b)
+                blk_idx, slot_row, _ = it.tl.ub_block_tables(
+                    tids[:it.qb["n_slots"]])
+                it.ub = ub_scorer(
+                    it.tl.tile_docs, it.tl.tile_maxes, up(blk_idx),
+                    up(slot_row), up(it.qb["w_idx"]), up(it.qb["w_val"]),
+                    n_t1=it.tl.n_tiles + 1, s_pad=it.qb["s_pad"],
+                    n_queries=q)[:, :it.tl.n_tiles]
+                self.tile_stats["ub_launches"] += 1
+                self.route_rows["tiles"] += (
+                    len(it.hmap) if it.hmap is not None else len(lims))
+                it.processed = torch.zeros((q, it.tl.n_tiles),
+                                           dtype=torch.bool,
+                                           device=self.device)
+                it.theta = torch.full((q,), float("-inf"),
+                                      device=self.device)
+
+        seed_c = int(os.environ.get("SEARCHLITE_SEED_TILES_PER_QUERY", 0))
+        m_budget = int(os.environ.get("SEARCHLITE_M_BUDGET_BYTES",
+                                      2 * 1024**3))
+
+        def launch_select(it):
+            c = seed_c or max(2, -(-it.k // it.tl.T) + 1)
+            # survivor rounds widen geometrically (capped) so a
+            # loose-bound query cannot force thousands of tiny rounds
+            c = min(c << min(it.rounds, 6), max(64, c))
+            # M_b is [Q*tpq, C*T]: cap C by the device memory budget
+            q = it.qb["n_queries"]
+            c_mem = max(1, m_budget // (8 * q * it.tpq_pad * it.tl.T))
+            c = min(c, next_pow2(c_mem) // 2 or 1)
+            c = next_pow2(min(max(c, -(-it.k // it.tl.T)),
+                              it.tl.n_tiles))
+            it.rounds += 1
+            self.tile_stats["rounds"] += 1
+            ids, remaining, it.processed = seed_select(
+                it.ub, it.processed, it.theta, c=c)
+            return ids, remaining
+
+        # the seed round and the survivor rounds share one loop: select,
+        # fetch the ids, score and merge (pipelined per round)
+        live = [it for it in items if not it.done]
+        while live:
+            sel_refs = [launch_select(it) for it in live]
+            fetched = _fetch([x for pair in sel_refs for x in pair])
+            for i, it in enumerate(live):
+                ids_np = fetched[2 * i]
+                remaining = int(fetched[2 * i + 1].sum())
+                n_real = int((ids_np < it.tl.n_tiles).sum())
+                if n_real == 0:
+                    it.done = True
+                    continue
+                self.tile_stats["tiles_scored"] += n_real
+                q_tiles = np.sort(ids_np.astype(np.int64), axis=1)
+                runs = it.tl.run_tables_per_query(
+                    it.q_tids, q_tiles, it.tpq_pad)
+                n_cols = runs["n_cols"]
+                flat = it.dseg.flat_postings()
+                top, docs = pq_run_scorer(
+                    flat["docs_flat"], flat["impacts_flat"],
+                    it.tl.deleted_tiles, up(q_tiles.astype(np.int32)),
+                    it.w_b, up(runs["packed"]), k=it.k, n_cols=n_cols,
+                    n_post=runs["postings"], tpq_pad=it.tpq_pad,
+                    t=it.tl.T, fmt=runs["packed_fmt"])
+                self.tile_stats["wave_launches"] += 1
+                if top.shape[1] < it.k:  # n_cols < k: pad to k wide
+                    pad = (0, it.k - top.shape[1])
+                    top = torch.nn.functional.pad(top, pad,
+                                                  value=float("-inf"))
+                    docs = torch.nn.functional.pad(docs, pad)
+                if it.run_s is None:
+                    it.run_s, it.run_d, it.theta = topk_merge(
+                        top, docs, top[:, :0], docs[:, :0], it.lims)
+                else:
+                    it.run_s, it.run_d, it.theta = topk_merge(
+                        it.run_s, it.run_d, top, docs, it.lims)
+                if remaining == 0:
+                    it.done = True
+            live = [it for it in items if not it.done]
+
+        # fetch the final per-item results (bulk)
+        final_refs = []
+        for it in items:
+            if it.run_s is not None:
+                final_refs.extend((it.run_s, it.run_d))
+            if it.sparse is not None:
+                final_refs.extend(it.sparse[:2])
+        final_vals = iter(_fetch(final_refs))
+        per_batch_segments: list[list] = [[] for _ in batches]
+        for it in items:
+            if it.run_s is None and it.sparse is None:
+                continue
+            nq = len(batches[it.bi])
+            s_np = d_np = None
+            if it.run_s is not None:
+                s_np = next(final_vals)
+                d_np = next(final_vals).astype(np.int64)
+                d_np = np.where(s_np > -np.inf, d_np, 0)
+            if it.sparse is not None:
+                ts = next(final_vals)
+                td = next(final_vals).astype(np.int64)
+                light_idx = it.sparse[2]
+                k = ts.shape[1]
+                s_full = np.full((nq, k), -np.inf, dtype=np.float32)
+                d_full = np.zeros((nq, k), dtype=np.int64)
+                s_full[light_idx] = ts[:len(light_idx)]
+                d_full[light_idx] = np.where(
+                    ts[:len(light_idx)] > -np.inf, td[:len(light_idx)], 0)
+                if s_np is not None and it.hmap is not None:
+                    s_full[it.hmap] = s_np[:len(it.hmap), :k]
+                    d_full[it.hmap] = d_np[:len(it.hmap), :k]
+                s_np, d_np = s_full, d_full
+            per_batch_segments[it.bi].append((it.dseg.ord, s_np, d_np))
+        return [self._merge_batch_output(queries, per_segment, limits[bi],
+                                         output, limit)
+                for bi, (queries, per_segment) in enumerate(
+                    zip(batches, per_batch_segments))]
+
+    def _search_batch_pruned_many(self, batches, limit: int, fields,
+                                  filter_tables, limits,
+                                  output: str = "pairs"):
+        """Three-wave doc-tile pruned execution over the UNION of the
+        batch's tiles (JAX ``_search_batch_pruned_many``): wave 1 computes
+        per-tile score upper bounds, wave 2 exactly scores each query's
+        top tiles by bound, wave 3 the remaining tiles whose bound reaches
+        the observed top-k threshold of some query (usually none). Exact
+        per query. Waves are pipelined across all batches and segments:
+        three bulk copies in all. Per-query filters shrink the match set
+        only, so the bound stays sound; thresholds use filtered exact
+        scores."""
+        up = self._upload
+        seed_c = int(os.environ.get("SEARCHLITE_SEED_TILES", 0))
+        analyzed_box = [None]
+
+        # wave 1: per (batch, segment) the UB matrix
+        work = []  # (batch_i, dseg, tl, qb, ub_ref)
+        for bi in range(len(batches)):
+            for dseg in self.device_segments:
+                seg = dseg.reader
+                if seg.doc_count == 0:
+                    continue
+                qb = self._qb_lazy_native(
+                    seg, dseg, batches, bi, fields, analyzed_box,
+                    lazy_tables=False)
+                tl = get_tile_index(dseg)
+                n_slots = qb["n_slots"]
+                if n_slots == 0:
+                    work.append((bi, dseg, tl, qb, None))
+                    continue
+                blk_idx, slot_row, _ = tl.ub_block_tables(
+                    qb["slot_tids"][:n_slots])
+                ub_ref = ub_scorer(
+                    tl.tile_docs, tl.tile_maxes, up(blk_idx), up(slot_row),
+                    up(qb["w_idx"]), up(qb["w_val"]),
+                    n_t1=tl.n_tiles + 1, s_pad=qb["s_pad"],
+                    n_queries=qb["n_queries"])
+                self.tile_stats["ub_launches"] += 1
+                self.route_rows["tiles"] += len(batches[bi])
+                work.append((bi, dseg, tl, qb, ub_ref))
+
+        ub_iter = iter(_fetch([ref for *_x, ref in work
+                               if ref is not None]))
+
+        def k_of(bi):
+            return int(limits[bi].max()) if len(limits[bi]) else limit
+
+        def gather_wave(tl, refs, vals, s_parts, d_parts):
+            for _s, _i, chunk_tiles, _p in refs:
+                s_parts.append(next(vals))
+                d_parts.append(tl.map_ids(chunk_tiles, next(vals)))
+                self.tile_stats["tiles_scored"] += len(chunk_tiles)
+            return (np.concatenate(s_parts, axis=1),
+                    np.concatenate(d_parts, axis=1))
+
+        # wave 2: seed tiles, per query the top-C tiles by UB
+        wave2 = []  # (ub, seed_tiles, refs or None)
+        for bi, dseg, tl, qb, ub_ref in work:
+            if ub_ref is None:
+                wave2.append((None, None, None))
+                continue
+            ub = next(ub_iter)[:, :tl.n_tiles]
+            c = min(seed_c or max(4, -(-4 * k_of(bi) // tl.T)), tl.n_tiles)
+            if c < tl.n_tiles:
+                part = np.argpartition(-ub, c - 1, axis=1)[:, :c]
+            else:
+                part = np.broadcast_to(
+                    np.arange(tl.n_tiles), ub.shape).copy()
+            pos = ub[np.arange(ub.shape[0])[:, None], part] > 0.0
+            seed = np.unique(part[pos])
+            if len(seed) == 0:
+                wave2.append((ub, seed, None))
+                continue
+            refs = self._launch_tile_runs(dseg, tl, qb, seed, k_of(bi),
+                                          filter_tables[bi])
+            wave2.append((ub, seed, refs))
+
+        vals2 = iter(_fetch([x for _ub, _seed, refs in wave2
+                             if refs is not None
+                             for chunk in refs for x in chunk[:2]]))
+
+        # wave 3: survivors, the tiles with UB >= theta for any query
+        wave3 = []  # (seed result or None, refs or None)
+        for (bi, dseg, tl, qb, _r), (ub, seed, refs) in zip(work, wave2):
+            if refs is None:
+                wave3.append((None, None))
+                continue
+            scores2, docs2 = gather_wave(tl, refs, vals2, [], [])
+            # rows must be (score desc, doc asc)-sorted for the per-query
+            # threshold pick below; single-chunk rows already are
+            if len(refs) > 1:
+                order = np.lexsort((docs2, -scores2), axis=-1)
+                scores2 = np.take_along_axis(scores2, order, axis=1)
+                docs2 = np.take_along_axis(docs2, order, axis=1)
+            nvalid = (scores2 > -np.inf).sum(axis=1)
+            # per-query threshold at that query's OWN limit (tighter
+            # than the batch max, still exact)
+            theta = np.full(scores2.shape[0], -np.inf, dtype=np.float64)
+            lims = np.minimum(limits[bi], scores2.shape[1]).astype(int)
+            qs = np.flatnonzero(nvalid[:len(lims)] >= lims)
+            if len(qs):
+                theta[qs] = scores2[qs, lims[qs] - 1]
+            surv = ((ub >= theta[:, None]) & (ub > 0.0)).any(axis=0)
+            surv[seed] = False
+            extra = np.flatnonzero(surv).astype(seed.dtype)
+            refs3 = None
+            if len(extra):
+                refs3 = self._launch_tile_runs(dseg, tl, qb, extra,
+                                               k_of(bi), filter_tables[bi])
+            wave3.append(((scores2, docs2), refs3))
+
+        vals3 = iter(_fetch([x for _res, refs in wave3 if refs is not None
+                             for chunk in refs for x in chunk[:2]]))
+
+        # merge per (batch, segment), then across segments per batch
+        per_batch_segments: list[list] = [[] for _ in batches]
+        for (bi, dseg, tl, qb, _r), (res, refs3) in zip(work, wave3):
+            if res is None:
+                continue
+            scores2, docs2 = res
+            if refs3 is not None:
+                scores2, docs2 = gather_wave(tl, refs3, vals3, [scores2],
+                                             [docs2])
+            # exact per-query top-limit: sort by (-score, doc)
+            order = np.lexsort((docs2, -scores2), axis=-1)[:, :k_of(bi)]
+            top_s = np.take_along_axis(scores2, order, axis=1)
+            top_d = np.take_along_axis(docs2, order, axis=1)
+            top_d = np.where(top_s > -np.inf, top_d, 0)
+            nq = len(batches[bi])
+            per_batch_segments[bi].append(
+                (dseg.ord, top_s[:nq].astype(np.float32), top_d[:nq]))
+        return [self._merge_batch_output(queries, per_segment, limits[bi],
+                                         output, limit)
+                for bi, (queries, per_segment) in enumerate(
+                    zip(batches, per_batch_segments))]
+
+    @staticmethod
+    def _plan_wave_chunks(tl, slot_tids, tiles, s_pad: int) -> list:
+        """Split a wave's tile set into launch chunks bounded by the
+        memory budget, counting BOTH the M matrix (4*s_pad*T per tile)
+        and the posting-proportional device intermediates of
+        build_m_from_runs (32 bytes per posting slot). The arithmetic is
+        the JAX reader's (its pow-2 tile pad and pow-4 posting bucket
+        included), so waves split at the same budgets. Returns a list of
+        tile-subset arrays."""
+        budget = int(os.environ.get(
+            "SEARCHLITE_M_BUDGET_BYTES", 2 * 1024**3)) // 2
+        per_tile_m = 4 * max(s_pad, 1) * tl.T
+        tile_posts = tl.tile_postings(slot_tids, tiles)
+        csum = np.concatenate([[0], np.cumsum(tile_posts)])
+
+        def fits(lo, hi):
+            m_bytes = per_tile_m * next_pow2(hi - lo)
+            p_pad = pow4_bucket(max(int(csum[hi] - csum[lo]), 1),
+                                minimum=1024)
+            return m_bytes + 32 * p_pad <= budget
+
+        max_tiles_m = max(1, budget // per_tile_m)
+        chunks = []
+        lo, n_sel = 0, len(tiles)
+        while lo < n_sel:
+            hi = min(lo + max_tiles_m, n_sel)
+            # largest prefix that fits (binary search over hi)
+            good, bad = lo + 1, hi + 1
+            while bad - good > 1:
+                mid = (good + bad) // 2
+                if fits(lo, mid):
+                    good = mid
+                else:
+                    bad = mid
+            hi = good
+            chunks.append(tiles[lo:hi])
+            lo = hi
+        return chunks
+
+    def _launch_tile_runs(self, dseg, tl, qb, tiles, limit: int,
+                          filter_table=(None, None)):
+        """One exact-scoring wave over the selected tiles, split into
+        budgeted launches (:meth:`_plan_wave_chunks`; the wave-3 survivor
+        set is unbounded). Returns a list of (scores, ids, tiles_chunk,
+        postings); the caller merges the per-chunk top-k on the host. A
+        launch that still runs out of device memory evicts the rebuildable
+        device caches and retries on progressively smaller chunks."""
+        chunks = self._plan_wave_chunks(
+            tl, qb["slot_tids"][:qb["n_slots"]], tiles, qb["s_pad"])
+        out = []
+        for chunk in chunks:
+            out.extend(self._launch_chunk_retrying(
+                chunk, lambda c: self._launch_tile_runs_one(
+                    dseg, tl, qb, c, limit, filter_table)))
+        return out
+
+    def _evict_and_collect(self):
+        import gc
+
+        for ds in self.device_segments:
+            ds.evict_device_caches()
+        gc.collect()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def _retry_oom(self, run):
+        """Coarse outer retry: an out-of-memory error past the per-launch
+        retry (in a fetch, a merge) evicts the rebuildable device caches
+        and re-runs the whole pruned pass once (the pass is pure). The
+        retry happens AFTER the except block exits: the exception's
+        traceback pins the failed pass's frames, and their tensors, for
+        the handler's lifetime, which would defeat the eviction."""
+        try:
+            return run()
+        except torch.OutOfMemoryError:
+            pass
+        self._evict_and_collect()
+        return run()
+
+    def _launch_chunk_retrying(self, chunk, launch_one) -> list:
+        # retries run outside the except blocks, see _retry_oom
+        try:
+            return [launch_one(chunk)]
+        except torch.OutOfMemoryError:
+            pass
+        self._evict_and_collect()
+        try:
+            return [launch_one(chunk)]
+        except torch.OutOfMemoryError:
+            if len(chunk) <= 1:
+                raise
+        mid = len(chunk) // 2
+        return (self._launch_chunk_retrying(chunk[:mid], launch_one)
+                + self._launch_chunk_retrying(chunk[mid:], launch_one))
+
+    def _launch_tile_runs_one(self, dseg, tl, qb, tiles, limit: int,
+                              filter_table=(None, None)):
+        tiles = np.asarray(tiles)
+        n_slots = qb["n_slots"]
+        runs = tl.run_tables(qb["slot_tids"][:n_slots], tiles)
+        n_cols = runs["n_cols"]
+        s_pad = qb["s_pad"]
+        # the JAX wave's guard (its tile count padded to a power of two)
+        if s_pad * next_pow2(len(tiles)) * tl.T + runs["p_pad"] >= 2**31:
+            raise QueryError(
+                "tile wave exceeds int32 device indexing; lower "
+                "SEARCHLITE_SEED_TILES or shard the corpus")
+        fidx, distinct = filter_table
+        tiles_dev = self._upload(tiles.astype(np.int32))
+        filter_rows = fidx_dev = None
+        if fidx is not None:
+            # the segment's resident filter rows, gathered to tile space
+            # on the device (no per-launch upload of the mask columns)
+            filter_rows = gather_cols(
+                self._segment_filter_rows(dseg, distinct),
+                *tile_cols(tiles_dev, tl.T, dseg.n1), False)
+            fidx_dev = self._upload(fidx)
+        flat = dseg.flat_postings()
+        scores, ids = run_batch_scorer(
+            flat["docs_flat"], flat["impacts_flat"], tl.deleted_tiles,
+            tiles_dev,
+            self._upload(runs["packed"]), self._upload(qb["w_idx"]),
+            self._upload(qb["w_val"]), filter_rows, fidx_dev,
+            k=min(limit, n_cols), n_cols=n_cols,
+            n_post=runs["postings"], s_pad=s_pad,
+            n_queries=qb["n_queries"], fmt=runs["packed_fmt"])
+        self.tile_stats["wave_launches"] += 1
+        return (scores, ids, tiles, runs["postings"])
+
     # -- host merge -----------------------------------------------------------
 
     def _merge_batch_output(self, queries, per_segment, blimits,
@@ -2379,6 +3225,20 @@ class IndexReader:
         return [list(zip(drow[:n].tolist(), srow[:n]))
                 for n, drow, srow in zip(take.tolist(), docstrs,
                                          scores.tolist())]
+
+
+class _PqItem:
+    """One (batch, segment) work item of the per-query pruned path."""
+
+    __slots__ = ("bi", "dseg", "tl", "qb", "ub", "q_tids", "w_b",
+                 "tpq_pad", "k", "lims", "processed", "theta", "run_s",
+                 "run_d", "rounds", "done", "sparse", "hmap")
+
+    def __init__(self):
+        self.ub = self.sparse = self.hmap = None
+        self.run_s = self.run_d = None
+        self.rounds = 0
+        self.done = False
 
 
 class _KeyWrap:

@@ -282,6 +282,10 @@ TENSOR_KEYS = ("block_docs", "block_impacts_live", "sparse_tid_tbl",
 # DeviceSegment.heavy_lookup's tensors (ops/sparse.py::build_heavy_lookup_
 # host): the lookup table, per-term base and log2 group width, max impact
 HEAVY_KEYS = ("tbl", "base", "log2g", "maximp")
+# DeviceSegment.flat_postings' tensors: the (term, doc)-sorted CSR postings
+# the doc-tile run scorers read (int32 docs, f32 RAW impacts: the tile
+# path masks tombstones by ``deleted_tiles``); 8 bytes a posting
+FLAT_KEYS = ("docs_flat", "impacts_flat")
 
 
 def host_arrays(host: HostSegment) -> dict[str, np.ndarray]:
@@ -307,8 +311,9 @@ def from_host_arrays(arrays: dict[str, np.ndarray], device,
     the host build, or any other source of the same layout) as tensors on
     ``device``, bit for bit. The default
     keys are the strip route's; :data:`HEAVY_KEYS` carries a
-    ``heavy_lookup(term_cap)`` and ``("m_dense",)`` a
-    ``dense_rows(budget)["m_dense"]``."""
+    ``heavy_lookup(term_cap)``, ``("m_dense",)`` a
+    ``dense_rows(budget)["m_dense"]``, :data:`FLAT_KEYS` the flat
+    postings and ``ops/tiles.py::TILE_KEYS`` a ``TileIndex``'s tables."""
     device = torch.device(device)
     out = {}
     for key in keys:
@@ -344,7 +349,32 @@ class DeviceSegment:
         self.deleted = tensors["deleted"]
         self._dense_rows: dict = {}
         self._heavy_lookup: dict = {}
+        self._flat_postings = None
+        self._tile_index = None  # ops/tiles.py::get_tile_index
         self.filter_rows_cache = None  # (filter key, [F+1, n1] bool)
+
+    def flat_postings(self) -> dict[str, torch.Tensor]:
+        """The flat CSR postings on this segment's device (keys
+        :data:`FLAT_KEYS`), uploaded at the first pruned or chunked use
+        and cached: 8 bytes a posting."""
+        if self._flat_postings is None:
+            self._flat_postings = from_host_arrays(
+                {"docs_flat": self.host.docs_flat_np,
+                 "impacts_flat": self.host.impacts_flat_np},
+                self.device, keys=FLAT_KEYS)
+        return self._flat_postings
+
+    def evict_device_caches(self) -> None:
+        """Drop the device residents that can be rebuilt from the host
+        build (the dense rows, the heavy-term lookup, the filter rows, the
+        flat postings, the tile tables' tensors). Called when a pruned wave launch runs out of
+        device memory; the next query that needs one uploads it again."""
+        self._dense_rows = {}
+        self._heavy_lookup = {}
+        self._flat_postings = None
+        self.filter_rows_cache = None
+        if self._tile_index is not None:
+            self._tile_index.drop_tensors()
 
     def dense_rows(self, budget_bytes: int):
         """Resident dense impact rows for the highest-df terms (df >=

@@ -1,7 +1,8 @@
-"""Native (C/C++) host accelerators: ingest, query prep, result lists.
+"""Native (C/C++) host accelerators: ingest, query prep, result lists,
+and the single-core C++ baseline engine the bench compares against.
 
 Compiles the sources at the repository root (``native/slt_ingest.cpp``,
-``native/slt_results.c``) on first use with g++/gcc into
+``native/slt_results.c``, ``native/slt_cpu_engine.cpp``) on first use with g++/gcc into
 ``build/native/`` at the repository root (gitignored; each library is
 keyed by a content hash of every native source, so an edited source never
 loads a stale library) and binds them with ctypes. The native builder
@@ -236,6 +237,111 @@ def get_results_mod():
             _RESULTS_FAILED = True
             return None
         return _RESULTS_MOD
+
+
+def build_cpu_engine_lib() -> str | None:
+    """Build (or reuse) the single-core C++ BM25/WAND/BMW engine
+    (``native/slt_cpu_engine.cpp``), the same-run CPU baseline of
+    ``tools/bench.py``, into ``build/native/``. Returns the library path,
+    or None without a toolchain."""
+    here = os.path.dirname(_source_path())
+    src = os.path.join(here, "slt_cpu_engine.cpp")
+    if not os.path.exists(src):
+        return None
+    out = _hashed_cache_path("slt_cpu_engine")
+    if os.path.exists(out):
+        return out
+    tmp = out + f".tmp{os.getpid()}"
+    cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC",
+           "-std=c++17", src, "-o", tmp]
+    try:
+        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        os.replace(tmp, out)
+    except (subprocess.SubprocessError, FileNotFoundError, OSError):
+        return None
+    return out
+
+
+class CpuEngine:
+    """ctypes wrapper over the C++ CPU baseline engine. Modes:
+    "bm25" (TAAT brute), "wand", "bmw": the same exact top-k contract as
+    the device paths (score desc, doc asc)."""
+
+    MODES = {"bm25": 0, "wand": 1, "bmw": 2}
+
+    def __init__(self, seg_reader, k1: float = 0.9, b: float = 0.4,
+                 field: str | None = None):
+        path = build_cpu_engine_lib()
+        if path is None:
+            raise RuntimeError("cpu engine unavailable (no toolchain)")
+        lib = ctypes.CDLL(path)
+        lib.slt_eng_new.restype = ctypes.c_void_p
+        lib.slt_eng_new.argtypes = [
+            ctypes.c_int, ctypes.c_int,
+            np.ctypeslib.ndpointer(np.int64),
+            np.ctypeslib.ndpointer(np.int32),
+            np.ctypeslib.ndpointer(np.float32),
+            np.ctypeslib.ndpointer(np.float32),
+            ctypes.c_double, ctypes.c_double, ctypes.c_double]
+        lib.slt_eng_free.argtypes = [ctypes.c_void_p]
+        lib.slt_eng_search_batch.restype = ctypes.c_int64
+        lib.slt_eng_search_batch.argtypes = [
+            ctypes.c_void_p, np.ctypeslib.ndpointer(np.int32),
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            np.ctypeslib.ndpointer(np.int32),
+            np.ctypeslib.ndpointer(np.float32)]
+        self._lib = lib
+        postings = seg_reader.postings
+        term_df = postings.term_df.astype(np.int64)
+        self.base = np.concatenate(
+            [[0], np.cumsum(term_df)]).astype(np.int64)
+        flat_mask = postings.block_docs.reshape(-1) >= 0
+        docs_flat = np.ascontiguousarray(
+            postings.block_docs.reshape(-1)[flat_mask].astype(np.int32))
+        tfs_flat = np.ascontiguousarray(
+            postings.block_tfs.reshape(-1)[flat_mask].astype(np.float32))
+        n_docs = seg_reader.doc_count
+        if field is None:
+            fields = [n[len("_len:"):] for n in seg_reader.fast.columns
+                      if n.startswith("_len:")]
+            field = fields[0] if fields else None
+        doc_len = np.zeros(n_docs, dtype=np.float32)
+        avgdl = 0.0
+        if field is not None:
+            col = seg_reader.fast.column(f"_len:{field}")
+            if col is not None and len(col.values):
+                doc_len[col.row_ids] = col.values.astype(np.float32)
+            avgdl = float(seg_reader.avg_field_length(field))
+        self.terms = seg_reader.terms
+        self._handle = lib.slt_eng_new(
+            n_docs, len(term_df), self.base, docs_flat, tfs_flat,
+            doc_len, avgdl, k1, b)
+        if not self._handle:
+            raise RuntimeError("engine construction failed")
+
+    def __del__(self):
+        handle = getattr(self, "_handle", None)
+        if handle:
+            self._lib.slt_eng_free(handle)
+            self._handle = None
+
+    def tid(self, key: str) -> int:
+        t = self.terms.get(key)
+        return -1 if t is None else int(t)
+
+    def search_batch(self, qtids: np.ndarray, k: int,
+                     mode: str = "bmw"):
+        """qtids: [n_queries, terms_per_query] int32 (-1 = missing).
+        Returns (ids [n,k] int32 with -1 pads, scores [n,k] f32)."""
+        qtids = np.ascontiguousarray(qtids, dtype=np.int32)
+        nq, tpq = qtids.shape
+        out_ids = np.empty((nq, k), dtype=np.int32)
+        out_scores = np.empty((nq, k), dtype=np.float32)
+        self._lib.slt_eng_search_batch(
+            self._handle, qtids.reshape(-1), nq, tpq, k,
+            self.MODES[mode], out_ids.reshape(-1),
+            out_scores.reshape(-1))
+        return out_ids, out_scores
 
 
 class NativeQueryPrep:

@@ -1,8 +1,7 @@
 """Compiled dense query execution in PyTorch: the single-query executor.
 
-The port of ``searchlite_tpu/ops/score.py`` without its tile executors
-(those wait for ``ops/tiles.py``). One :class:`CompiledQuery` is built per
-query plan; :meth:`CompiledQuery.execute` scores one segment:
+The port of ``searchlite_tpu/ops/score.py``. One :class:`CompiledQuery`
+is built per query plan; :meth:`CompiledQuery.execute` scores one segment:
 
 1. M [s_pad, n1] from the query's posting blocks
    (:func:`~searchlite_tpu_torch.ops.impact.build_m_from_blocks`, one row
@@ -21,6 +20,12 @@ no term, but ``final_mask`` and ``text_mask`` exclude deleted docs in
 both, so every output is the same. Zero-score matches (filter-only,
 match_all) keep their place: the top-k masks by ``final_mask``, never by
 ``score > 0``.
+
+The tile executors (:meth:`CompiledQuery.tile_execute`,
+:meth:`CompiledQuery.tile_mask_execute`) run the same matcher and score
+trees over compacted tile columns (the doc-tile pruned and chunked
+routes, ``ops/tiles.py``): M comes from posting runs of the raw flat
+impacts, and tombstones from ``deleted_tiles[tiles]``, as in JAX.
 """
 
 from __future__ import annotations
@@ -111,19 +116,20 @@ def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def topk_by_doc(masked: torch.Tensor, k: int):
-    """Top-k of a [n] f32 vector by (value desc, index asc), as
-    ``lax.top_k``: ``torch.topk`` promises no tie order, so it runs over
-    unique int64 keys -- the value's orderable bits high, ``n-1-index``
-    low. Returns (values [k] f32, indices [k] int32)."""
-    n = masked.shape[0]
+    """Top-k along the last axis of an f32 tensor ([n] or [Q, n]) by
+    (value desc, index asc), as ``lax.top_k``: ``torch.topk`` promises no
+    tie order, so it runs over unique int64 keys -- the value's orderable
+    bits high, ``n-1-index`` low. Returns (values [..., k] f32, indices
+    [..., k] int32)."""
+    n = masked.shape[-1]
     x = masked + 0.0  # -0.0 -> +0.0: equal floats, equal keys
     bits = x.view(torch.int32).to(torch.int64)
     ordered = torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF)
     doc = torch.arange(n, dtype=torch.int64, device=masked.device)
     keys = ordered * (1 << 32) + (n - 1 - doc)
-    top = torch.topk(keys, k, sorted=True).values
+    top = torch.topk(keys, k, dim=-1, sorted=True).values
     idx = (n - 1) - (top & 0xFFFFFFFF)
-    return masked[idx], idx.to(torch.int32)
+    return torch.gather(masked, -1, idx), idx.to(torch.int32)
 
 
 class CompiledQuery:
@@ -521,3 +527,52 @@ class CompiledQuery:
         text_mask = matcher_mask & ~deleted
         return (top_scores, top_idx, match_count, final_mask, adjusted,
                 cursor_seen, text_mask)
+
+    # -- the tile executors (ops/tiles.py) --------------------------------------
+
+    def _tile_core(self, docs_flat, impacts_flat, deleted_tiles, tiles, runs,
+                   w_leaf, leaf_ind, group_ind, phrase_masks, filter_masks,
+                   col_vals, col_has, root_mask, *, s_pad: int, n_cols: int,
+                   n_post: int, has_scored_terms: bool, need_scores: bool,
+                   fmt: int):
+        """M from posting runs restricted to the selected tiles, the
+        tile-space deleted mask from the resident padded copy, then
+        :meth:`_core`. Every doc-axis input is already gathered to tile
+        space by the host. Returns (final_mask, adjusted, matcher_mask,
+        deleted_cols)."""
+        # ops/tiles.py imports this module's matmul and top-k
+        from searchlite_tpu_torch.ops.tiles import (
+            build_m_from_runs,
+            unpack_runs,
+        )
+
+        run_start, run_len, run_slot, run_off = unpack_runs(runs, fmt)
+        m = build_m_from_runs(docs_flat, impacts_flat, run_start, run_len,
+                              run_slot, run_off, n_cols, s_pad, n_post)
+        deleted_cols = deleted_tiles[tiles.long()].reshape(-1)
+        final_mask, adjusted, matcher_mask = self._core(
+            m, deleted_cols, w_leaf, leaf_ind, group_ind, phrase_masks,
+            filter_masks, col_vals, col_has, root_mask, has_scored_terms,
+            need_scores)
+        return (final_mask, adjusted.to(torch.float32), matcher_mask,
+                deleted_cols)
+
+    def tile_execute(self, *args, k: int, **kw):
+        """The executor over compacted tile columns (the doc-tile pruned
+        path; the JAX ``tile_executor()`` run). Returns (top_scores [k]
+        f32, top_idx [k] int32 compacted columns, match_count [] int64)."""
+        final_mask, adjusted, _matcher, _deleted = self._tile_core(*args,
+                                                                   **kw)
+        match_count = final_mask.sum()
+        masked = torch.where(final_mask, adjusted, -math.inf)
+        top_scores, top_idx = topk_by_doc(masked, k)
+        return top_scores, top_idx, match_count
+
+    def tile_mask_execute(self, *args, **kw):
+        """Chunked full-width execution (the JAX ``tile_mask_executor()``
+        run): the tile-column core, returning the dense per-column outputs
+        (final_mask, adjusted, text_mask) for the host to stitch back into
+        doc space."""
+        final_mask, adjusted, matcher_mask, deleted_cols = self._tile_core(
+            *args, **kw)
+        return final_mask, adjusted, matcher_mask & ~deleted_cols

@@ -1,6 +1,7 @@
 """Profile of single-query ``search()`` on the card, per route.
 
     python -m searchlite_tpu_torch.tools.single_profile [--docs N]
+                                                        [--streams-only]
 
 Run from the repository root on a machine with an NVIDIA GPU. Builds
 ``chip_smoke``'s index over ``bench.py``'s corpus at ``N`` docs (default
@@ -19,11 +20,30 @@ through the port's reader on the card:
    runs) and its top-k at k = the strip's width (``strip_topk_blocks``, the
    first design), which return the same kept (doc, score) set.
 
+Then the routes of ``ops/tiles.py`` beside the dense executor, the sparse
+single routes switched off (``SEARCHLITE_SINGLE_SPARSE=0``) so that the
+9 single queries reach them at any corpus size:
+
+4. ``execution="bm25"`` (the dense executor);
+5. ``execution="wand"`` with ``SEARCHLITE_PRUNE_MIN_POSTINGS=0`` (the
+   doc-tile pruned jobs), and at the default threshold;
+6. ``execution="bm25"`` with ``SEARCHLITE_M_BUDGET_BYTES`` at a quarter of
+   the queries' dense M (the chunked executor, four chunks);
+7. ``bench.py``'s three 1024-query batches as one ``search_batch_many``
+   stream in arrays form, ``bm25`` and ``wand`` in turns (bm25, wand,
+   wand, bm25): wall per call and QPS, device busy time per call, the
+   tile waves' counters per call (UB and wave launches, tiles scored,
+   per-query rounds) and, over one call under cProfile, the host
+   functions with the most own time. ``--streams-only`` runs only this
+   set (and writes ``single_profile_streams[_<N>].json``).
+
 For each set: the segments per route, the unprofiled wall per query (host
 clock around a call that ends in a synchronise; p50, min, max), and over
 one profiled pass the device busy time per query, the busy share of the
 profiled wall, device ops per query and the top kernels by name. Prints
-one line per set and writes ``chiprun_out/single_profile[_<N>].json``;
+one line per set (and first the bytes the tile routes keep on the card:
+the flat postings at 8 bytes a posting, the tile tables) and writes
+``chiprun_out/single_profile[_<N>].json``;
 exits non-zero when no card is found.
 """
 
@@ -60,31 +80,55 @@ def _topk_at_width(block_docs, block_impacts, bstart, bcnt, w, sent, *,
                              log2_run=log2_run, with_counts=True)
 
 
-def measure(reader, queries, name: str, passes: int = 1) -> dict:
-    """Wall per query over ``passes`` passes, then one profiled pass."""
+def measure(reader, queries, name: str, passes: int = 1,
+            extra: dict | None = None, env: dict | None = None) -> dict:
+    """Wall per query over ``passes`` passes, then one profiled pass.
+    ``extra`` holds more request fields, ``env`` environment settings
+    for the set."""
+    saved = {k: os.environ.get(k) for k in env or {}}
+    os.environ.update(env or {})
+    try:
+        return _measure(reader, queries, name, passes, extra or {})
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
+def _measure(reader, queries, name: str, passes: int, extra: dict) -> dict:
+    # after the warm pass: ``passes`` timed passes, one under
+    # torch.profiler, one under cProfile
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from searchlite_tpu_torch.tools.fused_ab import _device_events
 
+    def search(q):
+        return reader.search({"query": q, "limit": 10, **extra})
+
     for q in queries:
-        reader.search({"query": q, "limit": 10})  # warm
+        search(q)  # warm
     before = dict(reader.single_routes)
+    stats = dict(reader.tile_stats)
     walls = []
     for _ in range(passes):
         for q in queries:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            reader.search({"query": q, "limit": 10})
+            search(q)
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for q in queries:
-            reader.search({"query": q, "limit": 10})
+            search(q)
         torch.cuda.synchronize()
         prof_wall = (time.perf_counter() - t0) * 1e3 / len(queries)
+    host_top = _host_top(lambda: [search(q) for q in queries],
+                         len(queries))
     kernels = _device_events(prof, len(queries))
     n_ops = sum(e.count for e in prof.key_averages()
                 if e.key in kernels) / len(queries)
@@ -92,18 +136,98 @@ def measure(reader, queries, name: str, passes: int = 1) -> dict:
     rec = {"name": name, "queries": len(queries),
            "routes": {k: reader.single_routes[k] - before[k]
                       for k in before},
+           "tile_stats_per_query": {
+               k: (reader.tile_stats[k] - stats[k])
+               / ((passes + 2) * len(queries)) for k in stats},
            "wall_ms_p50": float(np.percentile(walls, 50)),
            "wall_ms_min": min(walls), "wall_ms_max": max(walls),
            "profiled_wall_ms": prof_wall, "device_busy_ms": busy,
            "busy_share": busy / prof_wall, "device_ops_per_query": n_ops,
-           "kernels": kernels}
+           "kernels": kernels, "host_top_ms_per_query": host_top}
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
-    print(f"{name}: routes {rec['routes']}; wall p50 "
+    print(f"{name}: routes {rec['routes']}; tile stats a query "
+          f"{rec['tile_stats_per_query']}; wall p50 "
           f"{rec['wall_ms_p50']:.3f} ms (min "
           f"{rec['wall_ms_min']:.3f}, max {rec['wall_ms_max']:.3f}); device "
           f"busy {busy:.4f} ms/query ({100 * busy / prof_wall:.1f}% of "
           f"profiled wall), {n_ops:.0f} device ops/query; "
-          + ", ".join(f"{k[:40]} {v:.4f}" for k, v in top), flush=True)
+          + ", ".join(f"{k[:40]} {v:.4f}" for k, v in top)
+          + "; host, own ms a query: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in host_top[:6]), flush=True)
+    return rec
+
+
+def _host_top(run, calls: int, n: int = 10) -> list:
+    """The host functions with the most own time over one ``run()`` under
+    cProfile, as [name, ms per call] (the profiler's overhead included:
+    shares, not walls)."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.runcall(run)
+    rows = sorted(pstats.Stats(prof).stats.items(),
+                  key=lambda kv: -kv[1][2])[:n]
+    return [[f"{os.path.basename(f)}:{line}:{name}", tt * 1e3 / calls]
+            for (f, line, name), (_cc, _nc, tt, _ct, _callers) in rows]
+
+
+def measure_stream(reader, stream, execution: str, calls: int = 3) -> dict:
+    """One ``search_batch_many`` stream in arrays form: wall per call over
+    ``calls`` calls, then ``calls`` profiled calls, then one call under
+    cProfile (the host functions with the most own time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from searchlite_tpu_torch.tools.fused_ab import _device_events
+
+    def call():
+        reader.search_batch_many(stream, limit=10, output="arrays",
+                                 execution=execution)
+
+    call()  # warm
+    rows = dict(reader.route_rows)
+    stats = dict(reader.tile_stats)
+    walls = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3 / calls
+    kernels = _device_events(prof, calls)
+    busy = sum(kernels.values())
+    n_queries = sum(len(b) for b in stream)
+    wall = float(np.median(walls))
+    rec = {"name": f"stream {execution}", "queries": n_queries,
+           "rows_per_route": {k: (reader.route_rows[k] - rows[k])
+                              // (2 * calls) for k in rows},
+           "tile_stats_per_call": {k: (reader.tile_stats[k] - stats[k])
+                                   / (2 * calls) for k in stats},
+           "host_top_ms_per_call": _host_top(call, 1),
+           "wall_ms_median": wall, "wall_ms": walls,
+           "qps": n_queries / wall * 1e3, "profiled_wall_ms": prof_wall,
+           "device_busy_ms": busy, "busy_share": busy / prof_wall,
+           "kernels": kernels}
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:4]
+    print(f"stream {execution}: {n_queries} queries a call, rows per route "
+          f"{rec['rows_per_route']}, tile stats a call "
+          f"{rec['tile_stats_per_call']}; wall median {wall:.2f} ms "
+          f"({rec['qps']:.0f} QPS; calls "
+          f"{', '.join(f'{w:.2f}' for w in walls)}); device busy "
+          f"{busy:.3f} ms/call ({100 * busy / prof_wall:.1f}% of profiled "
+          f"wall); " + ", ".join(f"{k[:40]} {v:.4f}" for k, v in top)
+          + "; host, own ms a call: "
+          + ", ".join(f"{k} {v:.3f}"
+                      for k, v in rec["host_top_ms_per_call"][:6]),
+          flush=True)
     return rec
 
 
@@ -114,9 +238,12 @@ def main() -> int:
     import bench
 
     from searchlite_tpu_torch.ops import sparse
+    from searchlite_tpu_torch.ops.tiles import get_tile_index
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--docs", type=int, default=bench.N_DOCS)
+    ap.add_argument("--streams-only", action="store_true",
+                    help="skip the single-query sets")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAILED: torch.cuda.is_available() is False")
@@ -127,29 +254,63 @@ def main() -> int:
     print(card, flush=True)
     os.environ["SEARCHLITE_PRECISION"] = "f32_strict"
     reader = chip_smoke.build_index().reader()
-    print(f"n1 = {reader.device_segments[0].n1}", flush=True)
+    dseg = reader.device_segments[0]
+    tl = get_tile_index(dseg)
+    n_post = int(dseg.reader.postings.term_df.sum())
+    # what the tile routes keep on the card beside the block layout
+    resident = {
+        "postings": n_post, "flat_postings_bytes": 8 * n_post,
+        "tile_width": tl.T, "n_tiles": tl.n_tiles,
+        "tile_entries": len(tl.entry_start),
+        "tile_table_bytes": tl.tile_docs_np.nbytes + tl.tile_maxes_np.nbytes
+        + tl.deleted_tiles_np.nbytes}
+    print(f"n1 = {dseg.n1}; tile routes' residents: {resident}", flush=True)
     singles = bench.build_queries()[0]
-    out = {"card": card, "docs": args.docs, "sets": []}
-    out["sets"].append(measure(reader, singles[:9], "default singles",
-                               passes=3))
-    if args.docs < 1_000_000:
-        os.environ["SEARCHLITE_SINGLE_SPARSE_MIN_DOCS"] = "0"
-    out["sets"].append(measure(reader, singles[9:73], "bench singles"))
-    split = chip_smoke.split_queries()
-    lanes = sparse.strip_lanes_blocks
-    for variant in ("lanes", "top-k", "top-k", "lanes"):
-        sparse.strip_lanes_blocks = lanes if variant == "lanes" \
-            else _topk_at_width
-        try:
-            out["sets"].append(measure(
-                reader, split, f"sparse split ({variant})", passes=3))
-        finally:
-            sparse.strip_lanes_blocks = lanes
+    out = {"card": card, "docs": args.docs, "resident": resident,
+           "sets": []}
+    if not args.streams_only:
+        out["sets"].append(measure(reader, singles[:9], "default singles",
+                                   passes=3))
+        if args.docs < 1_000_000:
+            os.environ["SEARCHLITE_SINGLE_SPARSE_MIN_DOCS"] = "0"
+        out["sets"].append(measure(reader, singles[9:73], "bench singles"))
+        split = chip_smoke.split_queries()
+        lanes = sparse.strip_lanes_blocks
+        for variant in ("lanes", "top-k", "top-k", "lanes"):
+            sparse.strip_lanes_blocks = lanes if variant == "lanes" \
+                else _topk_at_width
+            try:
+                out["sets"].append(measure(
+                    reader, split, f"sparse split ({variant})", passes=3))
+            finally:
+                sparse.strip_lanes_blocks = lanes
+        # the tile routes beside the dense executor
+        no_sparse = {"SEARCHLITE_SINGLE_SPARSE": "0"}
+        n1 = reader.device_segments[0].n1
+        out["sets"].append(measure(
+            reader, singles[:9], "dense singles (bm25)", passes=3,
+            extra={"execution": "bm25"}, env=no_sparse))
+        out["sets"].append(measure(
+            reader, singles[:9], "pruned singles (wand, threshold 0)",
+            passes=3,
+            extra={"execution": "wand"},
+            env={**no_sparse, "SEARCHLITE_PRUNE_MIN_POSTINGS": "0"}))
+        out["sets"].append(measure(
+            reader, singles[:9], "wand singles (default threshold)", passes=3,
+            extra={"execution": "wand"}, env=no_sparse))
+        out["sets"].append(measure(
+            reader, singles[:9], "chunked singles (bm25, 4 chunks)", passes=3,
+            extra={"execution": "bm25"},
+            env={**no_sparse, "SEARCHLITE_M_BUDGET_BYTES": str(8 * n1)}))
+    stream = bench.build_queries()[1:]
+    for execution in ("bm25", "wand", "wand", "bm25"):
+        out["sets"].append(measure_stream(reader, stream, execution))
     routes = dict(reader.single_routes)
     out["single_routes"] = routes
     print(f"segments per route over the run: {routes}", flush=True)
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
-    suffix = "" if args.docs == 100_000 else f"_{args.docs}"
+    suffix = ("_streams" if args.streams_only else "") \
+        + ("" if args.docs == 100_000 else f"_{args.docs}")
     with open(os.path.join(REPO, "chiprun_out",
                            f"single_profile{suffix}.json"), "w") as fh:
         json.dump(out, fh, indent=1)

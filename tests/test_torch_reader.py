@@ -286,15 +286,16 @@ def test_python_prep_for_queries_native_prep_rejects(index):
 
 
 def test_unported_options_raise(index, monkeypatch):
-    """Batched wand/bmw, mesh and search()'s aggregations are not
-    ported; over the dense-M budget, filtered and k > 1024 batches need
-    the doc-sharded scan. search() itself now answers."""
+    """Mesh execution and search()'s aggregations are not ported; over
+    the dense-M budget, filtered and k > 1024 batches need the
+    doc-sharded scan. search() and batched wand / bmw now answer."""
     port = IndexReader(index, device="cpu")
     q = ["w1 w2"]
-    for kwargs in ({"execution": "wand"}, {"execution": "bmw"},
-                   {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port.search_batch(q, **kwargs)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port.search_batch(q, mesh=object())
+    for execution in ("wand", "bmw"):
+        assert port.search_batch(q, execution=execution) == \
+            port.search_batch(q)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.search({"query": "w1", "limit": 5,
                      "aggs": {"c": {"type": "terms", "field": "cat"}}})
