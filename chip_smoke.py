@@ -561,16 +561,19 @@ def check_fused_kernel(seed: int = 17):
 
 
 class FusedCalls:
-    """Records the operands the union waves hand ``fused_topk`` (the wave
-    scorer of ``ops/tiles.py`` looks the wrapper up in its module), so
-    that the kernel is held against its plain version on the tensors the
-    main path gave it. The recorder passes every call on unchanged."""
+    """Records the operands a scorer hands ``fused_topk`` (the union
+    waves' scorer of ``ops/tiles.py``, or with ``module`` the block scorer
+    of ``ops/impact.py`` that the doc-sharded scan calls once a shard:
+    each looks the wrapper up in its own module), so that the kernel is
+    held against its plain version on the tensors the main path gave it.
+    The recorder passes every call on unchanged."""
 
-    def __init__(self):
-        from searchlite_tpu_torch.ops import tiles
+    def __init__(self, module=None):
+        if module is None:
+            from searchlite_tpu_torch.ops import tiles as module
 
-        self.tiles = tiles
-        self.real = tiles.fused_topk
+        self.module = module
+        self.real = module.fused_topk
         self.calls = []
 
     def __enter__(self):
@@ -578,11 +581,11 @@ class FusedCalls:
             self.calls.append((w1, m1, deleted, kw))
             return self.real(w1, m1, deleted, **kw)
 
-        self.tiles.fused_topk = record
+        self.module.fused_topk = record
         return self
 
     def __exit__(self, *exc):
-        self.tiles.fused_topk = self.real
+        self.module.fused_topk = self.real
 
 
 def check_wave_calls(name: str, calls, tile_width: int):
@@ -655,9 +658,34 @@ class Counts:
                 sum(c.plain for c in self.counts.values()))
 
 
+# phase e's fields: a keyword of N_CATS distinct values, a multi-valued
+# numeric (1-3 values a doc), a date keyword, a 128-wide cosine vector on
+# every doc and a bf16 and an int8 vector field on the first
+# N_QUANT_DOCS docs
+N_CATS = 300
+VEC_DIM = 128
+N_QUANT_DOCS = 20_000
+
+
+def doc_cat(i: int) -> int:
+    return (i * 7919) % N_CATS
+
+
+def doc_vals(i: int) -> list[int]:
+    return [(i * 37 + j * 101) % 1000 for j in range(1 + i % 3)]
+
+
+def doc_month_day(i: int) -> tuple[int, int]:
+    return 1 + i % 12, 1 + i % 28
+
+
 def build_index():
-    """bench.py's corpus in one commit, plus a numeric fast field
-    ``bucket = i % 16`` for the filtered batch (body text unchanged)."""
+    """bench.py's corpus in one commit (body text unchanged), plus the fast
+    fields of the filtered batches and of phase e: ``bucket = i % 16``,
+    the keyword ``cat``, the multi-valued numeric ``vals``, the date
+    keyword ``day``, the cosine vector ``vec`` and, on the first
+    ``N_QUANT_DOCS`` docs, ``vec_bf16`` and ``vec_int8``. Returns (index,
+    the raw vectors by field)."""
     import bench
     from searchlite_tpu_torch.api.types import IndexOptions, StorageType
     from searchlite_tpu_torch.index import Index
@@ -670,17 +698,44 @@ def build_index():
         Schema.from_json({
             "text_fields": [{"name": "body", "analyzer": "default",
                              "stored": False, "indexed": True}],
-            "numeric_fields": [{"name": "bucket", "type": "i64",
-                                "stored": False, "fast": True}]}))
+            "keyword_fields": [
+                {"name": "cat", "stored": False, "indexed": False,
+                 "fast": True},
+                {"name": "day", "stored": False, "indexed": False,
+                 "fast": True}],
+            "numeric_fields": [
+                {"name": "bucket", "type": "i64", "stored": False,
+                 "fast": True},
+                {"name": "vals", "type": "i64", "stored": False,
+                 "fast": True}],
+            "vector_fields": [
+                {"name": "vec", "dim": VEC_DIM, "metric": "Cosine"},
+                {"name": "vec_bf16", "dim": VEC_DIM, "metric": "Cosine",
+                 "quantization": "bf16"},
+                {"name": "vec_int8", "dim": VEC_DIM, "metric": "L2",
+                 "quantization": "int8"}]}))
     docs = bench.build_docs()
+    rng = np.random.default_rng(23)
+    n_quant = min(N_QUANT_DOCS, len(docs))
+    vectors = {
+        "vec": rng.normal(size=(len(docs), VEC_DIM)).astype(np.float32),
+        "vec_bf16": rng.normal(size=(n_quant, VEC_DIM)).astype(np.float32),
+        "vec_int8": rng.normal(size=(n_quant, VEC_DIM)).astype(np.float32)}
     for i, doc in enumerate(docs):
         doc["bucket"] = i % 16
+        doc["cat"] = f"c{doc_cat(i):03d}"
+        doc["vals"] = doc_vals(i)
+        doc["day"] = "2024-%02d-%02dT00:00:00Z" % doc_month_day(i)
+        doc["vec"] = vectors["vec"][i].tolist()
+        if i < n_quant:
+            doc["vec_bf16"] = vectors["vec_bf16"][i].tolist()
+            doc["vec_int8"] = vectors["vec_int8"][i].tolist()
     writer = index.writer()
     writer.add_documents(docs)
     writer.commit()
     log(f"index: {bench.N_DOCS} docs built in "
         f"{time.perf_counter() - t0:.1f} s")
-    return index
+    return index, vectors
 
 
 def run_stream(reader, counts):
@@ -1378,6 +1433,493 @@ def run_batched_wand(reader, counts):
     return total, wave_rows
 
 
+def fetch_pairs(reader, scores, ids, n: int):
+    """Device (scores, ids) of one segment as per-query (doc_id, score)
+    lists, as ``search_batch`` gives them."""
+    seg = reader.segments[0]
+    sc = scores[:n].cpu().numpy()
+    di = ids[:n].cpu().numpy()
+    return [[(seg.doc_id(int(d)), float(s)) for s, d in zip(srow, drow)
+             if s > -np.inf] for srow, drow in zip(sc, di)]
+
+
+def run_sharded(reader, counts):
+    """Path e1: the doc-sharded dense scan. The filtered b1024 batch at
+    the default budget (two shards) and a 32-query ``limit=2000`` batch
+    with the budget cut to a quarter of its dense-M estimate (four
+    shards), each against the f64 oracle masked by its filters, with one
+    fused launch a live shard and the kernel held against its plain
+    version on every shard's own operands; then the two exact routes of a
+    batch with no row under the strip cap, full strips (the port's) and
+    the scan (the JAX reader's), side by side. Returns (launches, the
+    fused kernel's per-shape rows)."""
+    import torch
+
+    import bench
+    from searchlite_tpu_torch.ops import impact
+
+    dseg = reader.device_segments[0]
+    seg = reader.segments[0]
+    b1024 = bench.build_queries()[1]
+    filters = [FILTERS[i % len(FILTERS)] for i in range(len(b1024))]
+    total = {"strip_topk": 0, "strip_lanes": 0, "fused_topk": 0}
+    rows = []
+
+    def dense_estimate(queries):
+        qb = reader._qb_lazy_native(seg, dseg, [queries], 0, ["body"],
+                                    [None])
+        return (qb["s_pad"] + len(queries)) * dseg.n1 * 4
+
+    def batch(name, queries, fs, limit, budget, want_shards):
+        saved = os.environ.get("SEARCHLITE_M_BUDGET_BYTES")
+        if budget is not None:
+            os.environ["SEARCHLITE_M_BUDGET_BYTES"] = str(budget)
+        try:
+            reader.search_batch(queries, limit=limit, filters=fs)  # warm
+            before = dict(reader.route_rows)
+            counts.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with FusedCalls(impact) as recorded:
+                pairs = reader.search_batch(queries, limit=limit,
+                                            filters=fs)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches, plain = counts.read()
+        finally:
+            if saved is None:
+                os.environ.pop("SEARCHLITE_M_BUDGET_BYTES", None)
+            else:
+                os.environ["SEARCHLITE_M_BUDGET_BYTES"] = saved
+        routes = {k: reader.route_rows[k] - before[k] for k in before}
+        shards = dseg._doc_shards
+        width = shards["shard_width"]
+        live = -(-dseg.n1 // width)
+        if shards["n_shards"] != want_shards:
+            raise AssertionError(f"{name}: {shards['n_shards']} shards, "
+                                 f"expected {want_shards}")
+        if launches["fused_topk"] != live or plain != 0 \
+                or len(recorded.calls) != live:
+            raise AssertionError(
+                f"{name}: {launches['fused_topk']} fused launches over "
+                f"{live} live shards, {plain} plain calls")
+        if routes["sharded"] != len(queries) or routes["dense"]:
+            raise AssertionError(f"{name} took routes {routes}")
+        if any(call[1].shape[1] != width + 1 for call in recorded.calls):
+            raise AssertionError(f"{name}: a shard is not {width + 1} wide")
+        verify_masked(reader, queries, fs or [None] * len(queries), pairs,
+                      limit)
+        # the kernel against plain on each shard's own operands (after
+        # the counts were read: these launches do not count for the path)
+        for i, (w1, m1, deleted, kw) in enumerate(recorded.calls):
+            kw = dict(kw)
+            k = kw.pop("k")
+            kw = {key: val for key, val in kw.items() if val is not None}
+            rows.append(check_fused_call(f"{name} shard {i + 1}", w1, m1,
+                                         deleted, k, kw))
+        del recorded
+        for key in total:
+            total[key] += launches[key]
+        log(f"{name}: {len(queries)} queries oracle-verified (f32_strict"
+            + (", filter-masked" if fs else "") + f") in {dt * 1000:.1f} "
+            f"ms; {shards['n_shards']} shards of N = {width + 1}, "
+            f"launches {launches}, plain calls {plain}; rows per route "
+            f"{routes} on {card_line()} (information, not a benchmark)")
+
+    est = dense_estimate(b1024)
+    budget = int(os.environ.get("SEARCHLITE_M_BUDGET_BYTES", 2 * 1024**3))
+    if not est > budget >= est // 2:
+        raise AssertionError(f"the b1024 dense-M estimate is {est} bytes: "
+                             f"not two shards at the budget of {budget}")
+    batch("sharded b1024 filtered", b1024, filters, K, None, 2)
+    b32 = b1024[:32]
+    batch("sharded b32 k=2000", b32, None, 2000, dense_estimate(b32) // 4, 4)
+
+    # a batch with no row under the strip cap, over the budget: the port
+    # rides full strips where the JAX reader takes the scan; both exact
+    qb = reader._qb_lazy_native(seg, dseg, [b1024], 0, ["body"], [None])
+    impact.ensure_dense_tables(qb)
+
+    def full_strips():
+        return reader._full_strip_launch(dseg, qb, K)
+
+    def scan():
+        return reader._search_batch_sharded(dseg, qb, K, est, budget)
+
+    counts.reset()
+    for name, fn in (("full strips", full_strips), ("the scan", scan)):
+        scores, ids = fn()
+        if not bench.verify_vs_oracle(
+                reader, b1024, fetch_pairs(reader, scores, ids, len(b1024))):
+            raise AssertionError(f"{name} disagree with the oracle")
+    t_strips, t_scan = time_pair(full_strips, scan, 3)
+    launches, plain = counts.read()
+    if plain != 0 or launches["strip_topk"] <= 0 \
+            or launches["fused_topk"] <= 0:
+        raise AssertionError("the route comparison missed a kernel")
+    log(f"b1024 unfiltered with no row under the strip cap, both "
+        f"oracle-verified: full strips {t_strips:.3f} ms, the doc-sharded "
+        f"scan {t_scan:.3f} ms a batch (CUDA events around each call, "
+        f"its host prep included) on "
+        f"{card_line()} (information, not a benchmark)")
+    return total, rows
+
+
+def agg_requests():
+    """Phase e2's requests: (name, aggs, reduces on the device)."""
+    sub = {"s": {"type": "stats", "field": "bucket"}}
+    device = {
+        "terms + stats": {"t": {"type": "terms", "field": "cat",
+                                "size": N_CATS, "aggs": sub}},
+        "histogram": {"h": {"type": "histogram", "field": "vals",
+                            "interval": 100}},
+        "date_histogram": {"d": {"type": "date_histogram", "field": "day",
+                                 "calendar_interval": "month"}},
+        "range": {"r": {"type": "range", "field": "bucket", "ranges": [
+            {"to": 4}, {"from": 4, "to": 12}, {"from": 12}]}},
+        "filter": {"f": {"type": "filter", "filter": {
+            "I64Range": {"field": "bucket", "min": 0, "max": 7}}}},
+        "value_count": {"vc": {"type": "value_count", "field": "vals"}},
+        "extended_stats": {"es": {"type": "extended_stats",
+                                  "field": "bucket"}},
+        "significant_terms": {"sig": {"type": "significant_terms",
+                                      "field": "cat", "size": N_CATS}},
+    }
+    host = {
+        "percentiles": {"p": {"type": "percentiles", "field": "bucket",
+                              "percents": [50, 90]}},
+        "cardinality": {"card": {"type": "cardinality", "field": "cat"}},
+        "top_hits": {"top": {"type": "top_hits", "size": 3}},
+    }
+    return ([(name, aggs, True) for name, aggs in device.items()]
+            + [(name, aggs, False) for name, aggs in host.items()])
+
+
+def close_tree(a, b, rtol: float, where: str) -> None:
+    """Equal JSON trees: keys, counts and strings equal, floats within
+    ``rtol``."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        if set(a) != set(b):
+            raise AssertionError(f"{where}: keys {sorted(a)} != {sorted(b)}")
+        for key in a:
+            close_tree(a[key], b[key], rtol, f"{where}.{key}")
+    elif isinstance(a, list) and isinstance(b, list):
+        if len(a) != len(b):
+            raise AssertionError(f"{where}: {len(a)} != {len(b)} entries")
+        for i, (x, y) in enumerate(zip(a, b)):
+            close_tree(x, y, rtol, f"{where}[{i}]")
+    elif isinstance(a, float) and isinstance(b, float):
+        if abs(a - b) > rtol * abs(b) + 1e-9:
+            raise AssertionError(f"{where}: {a} != {b}")
+    elif a != b:
+        raise AssertionError(f"{where}: {a!r} != {b!r}")
+
+
+def check_aggs_vs_numpy(name, out, matched: np.ndarray) -> None:
+    """One request's aggregations against numpy over the ingested values
+    of the matched docs (``matched``: doc ordinals)."""
+    bucket = matched % 16
+    cats = np.asarray([doc_cat(int(i)) for i in matched])
+    n = len(matched)
+
+    def stats_ok(got, values, what):
+        if got["count"] != len(values) or got["min"] != values.min() \
+                or got["max"] != values.max() \
+                or abs(got["sum"] - values.sum()) > 1e-6 * values.sum():
+            raise AssertionError(f"{name}: {what} stats differ from numpy")
+
+    if name == "terms + stats":
+        want = np.bincount(cats, minlength=N_CATS)
+        got = {b["key"]: b for b in out["t"]["buckets"]}
+        if {key: b["doc_count"] for key, b in got.items()} != {
+                f"c{c:03d}": int(v) for c, v in enumerate(want) if v}:
+            raise AssertionError(f"{name}: bucket counts differ from numpy")
+        for c in np.flatnonzero(want)[:40]:
+            stats_ok(got[f"c{c:03d}"]["aggregations"]["s"],
+                     bucket[cats == c].astype(np.float64), f"c{c:03d}")
+    elif name == "histogram":
+        want: dict = {}
+        for i in matched:
+            for key in {v // 100 * 100.0 for v in doc_vals(int(i))}:
+                want[key] = want.get(key, 0) + 1
+        got = {b["key"]: b["doc_count"] for b in out["h"]["buckets"]
+               if b["doc_count"]}
+        if got != want:
+            raise AssertionError(f"{name}: bucket counts differ from numpy")
+    elif name == "date_histogram":
+        months = np.bincount(matched % 12, minlength=12)
+        got = {b["key"]: b["doc_count"] for b in out["d"]["buckets"]}
+        want = {"2024-%02d-01T00:00:00Z" % (m + 1): int(v)
+                for m, v in enumerate(months) if v}
+        if got != want:
+            raise AssertionError(f"{name}: bucket counts differ from numpy")
+    elif name == "range":
+        want = [int((bucket < 4).sum()),
+                int(((bucket >= 4) & (bucket < 12)).sum()),
+                int((bucket >= 12).sum())]
+        if [b["doc_count"] for b in out["r"]["buckets"]] != want:
+            raise AssertionError(f"{name}: counts differ from numpy")
+    elif name == "filter":
+        if out["f"]["doc_count"] != int((bucket <= 7).sum()):
+            raise AssertionError(f"{name}: count differs from numpy")
+    elif name == "value_count":
+        if out["vc"]["value"] != int((1 + matched % 3).sum()):
+            raise AssertionError(f"{name}: count differs from numpy")
+    elif name == "extended_stats":
+        vals = bucket.astype(np.float64)
+        stats_ok(out["es"], vals, "bucket")
+        if abs(out["es"]["variance"] - vals.var()) > 1e-6 * vals.var():
+            raise AssertionError(f"{name}: variance differs from numpy")
+    elif name == "significant_terms":
+        import bench
+
+        fg = np.bincount(cats, minlength=N_CATS)
+        bg = np.bincount([doc_cat(i) for i in range(bench.N_DOCS)],
+                         minlength=N_CATS)
+        if out["sig"]["doc_count"] != n \
+                or out["sig"]["bg_count"] != bench.N_DOCS:
+            raise AssertionError(f"{name}: totals differ from numpy")
+        for b in out["sig"]["buckets"]:
+            c = int(b["key"][1:])
+            if b["doc_count"] != fg[c] or b["bg_count"] != bg[c]:
+                raise AssertionError(f"{name}: {b['key']} differs")
+    elif name == "percentiles":
+        for pct in (50, 90):
+            want = float(np.percentile(bucket, pct))
+            if abs(out["p"]["values"][str(pct)] - want) > 1.0:
+                raise AssertionError(f"{name}: p{pct} far from numpy")
+    elif name == "cardinality":
+        want = len(set(cats.tolist()))
+        if abs(out["card"]["value"] - want) > 0.03 * want:
+            raise AssertionError(f"{name}: {out['card']['value']} vs {want}")
+    elif name == "top_hits":
+        if out["top"]["total"] != n:
+            raise AssertionError(f"{name}: total differs from numpy")
+    else:
+        raise AssertionError(f"no oracle for {name}")
+
+
+def run_aggs(reader, counts):
+    """Path e2: aggregations. Each request runs with
+    ``SEARCHLITE_DEVICE_AGGS`` at its default (the device kinds reduce on
+    the card) and at 0 (host collectors over the fetched mask): the two
+    must agree (keys and counts equal, sums within rtol 1e-6) and equal
+    numpy over the ingested values and the host match mask. Returns
+    launches."""
+    import bench
+    from searchlite_tpu_torch.api import reader as reader_mod
+
+    query = "tok5 tok9 tok40"
+    matched = np.flatnonzero(bench._oracle_scores(reader, query) > 0)
+    fetched = [0]
+    real_fetch = reader_mod._fetch
+
+    def counting_fetch(tensors):
+        fetched[0] += sum(t.numel() * t.element_size() for t in tensors)
+        return real_fetch(tensors)
+
+    counts.reset()
+    times = {"device": [], "host": []}
+    nbytes = {"device": [], "host": []}
+    reader_mod._fetch = counting_fetch
+    # under f32_strict stats stay with the host's f64 collectors: this
+    # path runs at the default precision, where they reduce on the card
+    precision = os.environ.pop("SEARCHLITE_PRECISION", None)
+    try:
+        for name, aggs, on_device in agg_requests():
+            req = {"query": query, "limit": K, "aggs": aggs}
+            outs = {}
+            for mode in ("device", "host"):
+                if mode == "host":
+                    os.environ["SEARCHLITE_DEVICE_AGGS"] = "0"
+                try:
+                    reader.search(dict(req))  # warm
+                    before = dict(reader.agg_routes)
+                    fetched[0] = 0
+                    res, ms = timed_search(reader, req)
+                finally:
+                    os.environ.pop("SEARCHLITE_DEVICE_AGGS", None)
+                delta = {k: reader.agg_routes[k] - before[k]
+                         for k in before}
+                want = ({"device": 1, "host": 0}
+                        if on_device and mode == "device"
+                        else {"device": 0, "host": 1})
+                if delta != want:
+                    raise AssertionError(f"{name} ({mode}): the route "
+                                         f"counter moved by {delta}")
+                if res.total_hits_estimate != len(matched):
+                    raise AssertionError(f"{name} ({mode}): count "
+                                         f"{res.total_hits_estimate}")
+                check_aggs_vs_numpy(name, res.aggregations, matched)
+                outs[mode] = res.aggregations
+                if on_device:
+                    times[mode].append(ms)
+                    nbytes[mode].append(fetched[0])
+            close_tree(outs["device"], outs["host"], 1e-6, name)
+    finally:
+        reader_mod._fetch = real_fetch
+        if precision is not None:
+            os.environ["SEARCHLITE_PRECISION"] = precision
+    launches, plain = counts.read()
+    if plain != 0:
+        raise AssertionError("the aggregation requests ran a plain version")
+    n_dev = len(times["device"])
+    log(f"aggregations: {n_dev} device kinds + "
+        f"{len(agg_requests()) - n_dev} host-only requests over "
+        f"{len(matched)} matched docs agree between the card's reductions "
+        f"and the host collectors and with numpy; device kinds p50 "
+        f"{p50(times['device']):.3f} ms on the card "
+        f"({p50(nbytes['device']):.0f} bytes fetched a request) beside "
+        f"{p50(times['host']):.3f} ms on the host collectors "
+        f"({p50(nbytes['host']):.0f} bytes, the mask included) on "
+        f"{card_line()} (information, not a benchmark)")
+    return launches
+
+
+def check_vector_hits(name, hits, sims: np.ndarray, ok: np.ndarray,
+                      limit: int, rtol: float = 1e-5) -> None:
+    """Vector-only hits against the brute-force similarity ``sims`` [n]
+    over the admissible docs ``ok`` [n]: scores within ``rtol``, the count
+    right, no better doc left out (so the sets agree away from
+    near-ties)."""
+    if len(hits) != min(limit, int(ok.sum())):
+        raise AssertionError(f"{name}: {len(hits)} hits")
+    ids = [int(h.doc_id) for h in hits]
+    for h, d in zip(hits, ids):
+        if not ok[d] or abs(h.score - sims[d]) > rtol * abs(sims[d]) + 1e-6:
+            raise AssertionError(f"{name}: doc {d} scores {h.score}, brute "
+                                 f"force {sims[d]}")
+    if ids:
+        rest = ok.copy()
+        rest[ids] = False
+        floor = min(float(sims[d]) for d in ids)
+        if rest.any() and float(sims[rest].max()) > floor + 1e-6 \
+                + rtol * abs(floor):
+            raise AssertionError(f"{name}: a closer doc was left out")
+    if [h.score for h in hits] != sorted((h.score for h in hits),
+                                         reverse=True):
+        raise AssertionError(f"{name}: hits are not score-descending")
+
+
+def run_vectors(reader, counts, vectors):
+    """Path e3: vector and hybrid search. A vector-only request over the
+    128-wide cosine field of every doc, a hybrid request (alpha 0.5) with
+    a filter, and a vector-only request on the bf16 and the int8 field,
+    each against numpy f64 brute force (for bf16 / int8 on the same
+    quantized values). Returns launches."""
+    import torch
+
+    import bench
+    from searchlite_tpu_torch.api.types import Filter
+    from searchlite_tpu_torch.ops.vector import quantize_int8
+    from searchlite_tpu_torch.query.filters import compute_filters_mask
+
+    seg = reader.segments[0]
+    n = seg.doc_count
+    rng = np.random.default_rng(29)
+    counts.reset()
+    limit = 10
+    times = {}
+
+    def timed(name, req):
+        reader.search(dict(req))  # warm: the field's buffers upload once
+        res, ms = timed_search(reader, req)
+        times[name] = ms
+        return res
+
+    # vector-only, f32 cosine over every doc
+    stored = seg.vectors["vec"].vectors.astype(np.float64)
+    q = vectors["vec"][4321] + 0.05 * rng.normal(size=VEC_DIM).astype(
+        np.float32)
+    qn = q.astype(np.float64) / np.linalg.norm(q.astype(np.float64))
+    sims = stored @ qn
+    res = timed("vector-only", {"query": {
+        "type": "vector", "field": "vec", "vector": q.tolist(),
+        "alpha": 0.0}, "limit": limit})
+    check_vector_hits("vector-only", res.hits, sims, np.ones(n, dtype=bool),
+                      limit)
+    if res.hits[0].doc_id != "4321":
+        raise AssertionError("vector-only: the perturbed doc is not first")
+
+    # hybrid, alpha 0.5, with a root filter: the text top (candidate + 1)
+    # joined with the vector top (candidate) among the docs the text
+    # matcher and the filter admit
+    raw = "tok57 tok300"
+    filt = {"I64Range": {"field": "bucket", "min": 2, "max": 9}}
+    fmask = compute_filters_mask(seg.fast, [Filter.from_json(filt)])
+    bm25 = np.where(fmask, bench._oracle_scores(reader, raw), 0.0)
+    cand = bm25 > 0
+    res = timed("hybrid", {"query": raw, "limit": limit, "filter": filt,
+                           "vector_query": {"field": "vec",
+                                            "vector": q.tolist(),
+                                            "alpha": 0.5}})
+    n_cand = 2 * max(limit, 10)
+    text_top = np.lexsort((np.arange(n), -bm25))[:n_cand + 1]
+    text_top = text_top[bm25[text_top] > 0]
+    vec_sims = np.where(cand, sims, -np.inf)
+    vec_top = np.lexsort((np.arange(n), -vec_sims))[:n_cand]
+    vec_top = vec_top[np.isfinite(vec_sims[vec_top])]
+    in_text = np.zeros(n, dtype=bool)
+    in_text[text_top] = True
+    in_vec = np.zeros(n, dtype=bool)
+    in_vec[vec_top] = True
+    blended = 0.5 * np.where(in_text, bm25, 0.0) \
+        + 0.5 * np.where(in_vec, sims, -1.0)
+    check_vector_hits("hybrid", res.hits, blended, in_text | in_vec, limit,
+                      rtol=1e-5)
+    if res.total_hits_estimate != int(cand.sum()):
+        raise AssertionError("hybrid: the match count differs from the "
+                             "oracle's")
+
+    # the quantized fields, on the same quantized values
+    n_quant = len(vectors["vec_bf16"])
+    present = np.zeros(n, dtype=bool)
+    present[:n_quant] = True
+
+    def bf16(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(
+            torch.bfloat16).to(torch.float64).numpy()
+
+    stored = seg.vectors["vec_bf16"].vectors[:n_quant]
+    qb = vectors["vec_bf16"][77] + 0.05 * rng.normal(size=VEC_DIM).astype(
+        np.float32)
+    qbn = (qb.astype(np.float64)
+           / np.sqrt((qb.astype(np.float64) ** 2).sum())).astype(np.float32)
+    sims_b = np.full(n, -np.inf)
+    sims_b[:n_quant] = bf16(stored) @ bf16(qbn)
+    res = timed("bf16", {"query": {"type": "vector", "field": "vec_bf16",
+                                   "vector": qb.tolist(), "alpha": 0.0},
+                         "limit": limit})
+    check_vector_hits("bf16", res.hits, sims_b, present, limit)
+
+    stored = seg.vectors["vec_int8"].vectors[:n_quant]
+    qi = vectors["vec_int8"][99] + 0.05 * rng.normal(size=VEC_DIM).astype(
+        np.float32)
+    codes, scale = quantize_int8(stored)
+    qcodes, qscale = quantize_int8(qi[None, :])
+    dots = (codes.astype(np.int64) @ qcodes[0].astype(np.int64)).astype(
+        np.float64) * (scale.astype(np.float64) * float(qscale[0]))
+    v_sq = (stored.astype(np.float64) ** 2).sum(axis=1)
+    q_sq = ((qcodes[0].astype(np.float64) * float(qscale[0])) ** 2).sum()
+    sims_i = np.full(n, -np.inf)
+    sims_i[:n_quant] = -np.sqrt(np.maximum(v_sq + q_sq - 2.0 * dots, 0.0))
+    res = timed("int8", {"query": {"type": "vector", "field": "vec_int8",
+                                   "vector": qi.tolist(), "alpha": 0.0},
+                         "limit": limit})
+    check_vector_hits("int8", res.hits, sims_i, present, limit, rtol=1e-4)
+
+    launches, plain = counts.read()
+    if plain != 0:
+        raise AssertionError("the vector requests ran a plain version")
+    log(f"vectors: vector-only over {n} docs x dim {VEC_DIM} "
+        f"({times['vector-only']:.3f} ms), hybrid alpha 0.5 with a filter "
+        f"({times['hybrid']:.3f} ms), bf16 cosine ({times['bf16']:.3f} ms) "
+        f"and int8 l2 ({times['int8']:.3f} ms) over {n_quant} docs agree "
+        f"with numpy f64 brute force on {card_line()} (information, not a "
+        "benchmark)")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1424,7 +1966,7 @@ def main() -> int:
     lanes_rows = check_lanes_kernel(seg, N1, LANES_SHAPES)
     fused_rows = check_fused_kernel()
 
-    index = build_index()
+    index, vectors = build_index()
     t1 = time.perf_counter()
     reader = index.reader()  # the port's reader, on the card
     log(f"reader open + upload {time.perf_counter() - t1:.1f} s, "
@@ -1446,9 +1988,15 @@ def main() -> int:
     chunked_launches = run_chunked_singles(reader, counts)
     wand_launches, wave_rows = run_batched_wand(reader, counts)
     fused_rows += wave_rows
+    sharded_launches, shard_rows = run_sharded(reader, counts)
+    fused_rows += shard_rows
+    agg_launches = run_aggs(reader, counts)
+    vector_launches = run_vectors(reader, counts, vectors)
     search_launches = {k: single_launches[k] + struct_launches[k]
                        + sparse_launches[k] + pruned_launches[k]
                        + chunked_launches[k] + wand_launches[k]
+                       + sharded_launches[k] + agg_launches[k]
+                       + vector_launches[k]
                        for k in single_launches}
     for blocked in ("jax", "searchlite_tpu"):
         if sys.modules.get(blocked) is not None:

@@ -38,8 +38,27 @@ routed per segment as the JAX reader routes them:
 5. one device-to-host copy for every dense segment, then the host phase
    in segment order (sort keys, cursors, collapse, rescore, hits).
 
-Requests with ``aggs``, vector clauses or ``mesh`` raise
-``NotImplementedError`` naming their ROADMAP item.
+**Aggregations** (``aggs``) switch the sparse single route and pruning
+off (they need every match). Per segment, where the request is a plain
+score-desc top-k and every aggregation of it can reduce on the device
+(``ops/device_aggs.py``), the partials are computed from the executor's
+match mask on the card and ride the one bulk copy last, in place of the
+doc-axis mask; otherwise the mask is fetched and the host collectors
+(``query/aggs.py``) run over it. ``agg_routes`` counts segments per route
+(``device``, ``host``); ``SEARCHLITE_DEVICE_AGGS=0`` keeps every segment
+on the host.
+
+**Vector clauses** (``vector_query``, or ``vector`` nodes in the query
+tree): a request with nothing else is answered by
+``_search_vector_only`` (exact brute force per segment,
+``ops/vector.py``; aggregations collect on the host over the hits); a
+hybrid request runs the text query as above, fetches the matcher's text
+mask with it, searches the vectors of the docs that mask and the filters
+admit, and blends the two scores per candidate
+(``compute_hybrid_score``).
+
+Requests with ``mesh`` raise ``NotImplementedError`` naming their ROADMAP
+item.
 
 ``single_routes`` counts segments per single-query route: ``dense``,
 ``sparse_plain``, ``sparse_split``, ``split_fallthrough`` (a split whose
@@ -70,8 +89,12 @@ any k up to the doc axis:
 Over the budget (the oversized-corpus route) unfiltered batches with
 k <= 1024 ride the strips with the wider cap ``max(512, 2*n1/640)``,
 term-split rows included, and rows the strips cannot certify take full
-strips holding every term. Filtered or k > 1024 batches over the budget
-need ``_search_batch_sharded``, which is not ported yet.
+strips holding every term. Filtered or k > 1024 batches over the budget,
+and rows full strips cannot hold, take the doc-sharded dense scan
+(``_search_batch_sharded``): the doc axis cut into power-of-two shards
+until one shard's M fits the budget and int32 indexing, each shard scored
+by the block scorer and the fused kernel at N = ``shard_width + 1``, the
+shards' lists merged on the device.
 
 **Batches with ``execution`` wand / bmw** take the doc-tile pruned paths
 (``SEARCHLITE_BATCH_PRUNE`` auto / pq / union): unfiltered batches the
@@ -83,7 +106,8 @@ waves over the union of the batch's tiles, ending in the fused kernel).
 Where every segment holds at least ``SEARCHLITE_BATCH_STRIP_MIN_DOCS``
 docs, auto mode treats wand / bmw as hints and runs the bm25 routes.
 ``route_rows`` counts rows per route: ``strip``, ``split``, ``dense``,
-``fallback`` and ``tiles`` (rows scored in tile waves).
+``fallback``, ``tiles`` (rows scored in tile waves) and ``sharded`` (rows
+through the doc-sharded scan).
 
 Every route is exact, so results match the JAX reader whichever route it
 took (scores to f32 reassociation, divergence D10). ``mesh`` is not ported
@@ -94,6 +118,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import math
 import os
 import re
 import threading
@@ -111,6 +136,7 @@ from searchlite_tpu_torch.api.types import (
     QueryNode,
     SearchRequest,
     SearchResult,
+    VectorQuery,
 )
 from searchlite_tpu_torch.errors import CursorError, QueryError, StorageError
 from searchlite_tpu_torch.index.highlight import (
@@ -119,7 +145,18 @@ from searchlite_tpu_torch.index.highlight import (
     make_snippet,
 )
 from searchlite_tpu_torch.models.bm25 import idf as bm25_idf
+from searchlite_tpu_torch.ops.device_aggs import (
+    build_intermediates,
+    launch_device_aggs,
+    plan_device_aggs,
+    strict as precision_strict,
+)
 from searchlite_tpu_torch.ops.score import CompiledQuery
+from searchlite_tpu_torch.ops.vector import vector_topk
+from searchlite_tpu_torch.query.aggs import (
+    AggregationPipeline,
+    validate_aggregations,
+)
 from searchlite_tpu_torch.query.phrase import matches_phrase
 from searchlite_tpu_torch.query.planner import QueryPlan, build_query_plan
 from searchlite_tpu_torch.query.sort import SortKey, SortPlan
@@ -149,7 +186,11 @@ from searchlite_tpu_torch.query.filters import (
 )
 from searchlite_tpu_torch.query.parser import parse_query
 from searchlite_tpu_torch.device.index import cached_segment
-from searchlite_tpu_torch.ops.impact import impact_scorer, split_impact_scorer
+from searchlite_tpu_torch.ops.impact import (
+    expand_impact_scorer,
+    impact_scorer,
+    split_impact_scorer,
+)
 from searchlite_tpu_torch.ops.tiles import (
     gather_cols,
     get_tile_index,
@@ -184,6 +225,14 @@ MASK_FILLS = (False, False, 0.0, False, False)
 # the executor's weight inputs, as ``_segment_query_args`` names them
 WEIGHT_KEYS = ("w_leaf", "leaf_ind", "group_ind")
 CURSOR_VERSION = 3
+# vector-search clamps (JAX: reader.py)
+MAX_VECTOR_CLAUSES = 8
+MAX_VECTOR_K = 1024
+MAX_VECTOR_CANDIDATE_SIZE = 10_000
+MAX_VECTOR_EF_SEARCH = 65_536
+MAX_GLOBAL_CANDIDATES = MAX_CANDIDATE_SIZE
+DEFAULT_VECTOR_ALPHA = 0.5
+DEFAULT_EF_SEARCH = 40
 
 # compiled plans, shared by every reader (commits reopen readers), keyed
 # by plan structure + schema fingerprint (JAX ``_GLOBAL_COMPILED``)
@@ -212,6 +261,60 @@ class RankedHit:
     score: float
     vector_score: Optional[float] = None
     explanation: Optional[dict] = None
+
+
+@dataclass
+class VectorClausePlan:
+    field: str
+    vector: list[float]
+    k: int
+    alpha: float
+    ef_search: int
+    candidate_size: int
+    boost: float
+    metric: str
+
+
+@dataclass
+class VectorPlan:
+    clauses: list[VectorClausePlan]
+    candidate_size: int
+    vector_only: bool
+
+
+def missing_vector_score(metric: str) -> float:
+    return -1.0 if metric == "cosine" else float(np.finfo(np.float32).min)
+
+
+def blend_scores(bm25: float, vector_score: float, alpha: float) -> float:
+    return alpha * bm25 + (1.0 - alpha) * vector_score
+
+
+def compute_hybrid_score(key, bm25_score: float, plan: VectorPlan,
+                         vector_scores: list[dict]):
+    """(final_score, vector_score_sum_or_None, has_vector): each clause
+    blends the BM25 score with its similarity (the metric's missing
+    penalty where the doc has no vector hit), averaged over clauses."""
+    blended_sum = 0.0
+    vector_sum = 0.0
+    has_vector = False
+    for clause, scores in zip(plan.clauses, vector_scores):
+        raw = scores.get(key)
+        if raw is not None:
+            vector_sum += raw
+            has_vector = True
+        vec_score = raw if raw is not None \
+            else missing_vector_score(clause.metric)
+        if clause.alpha >= 1.0:
+            blended = bm25_score
+        elif clause.alpha <= 0.0:
+            blended = vec_score
+        else:
+            blended = blend_scores(bm25_score, vec_score, clause.alpha)
+        blended_sum += blended
+    denom = max(len(plan.clauses), 1)
+    return (blended_sum / denom, vector_sum if has_vector else None,
+            has_vector)
 
 
 def distance_weight(distance: int) -> float:
@@ -332,26 +435,6 @@ def decode_cursor(raw: str, generation: int, sort_plan: SortPlan,
     return {"key": key, "returned": returned}
 
 
-def _has_vector_clause(req) -> bool:
-    """Does the request hold a vector clause (``vector_query`` or a
-    ``vector`` node anywhere in its query tree)?"""
-    if req.vector_query is not None:
-        return True
-
-    def walk(node) -> bool:
-        if node.kind == "vector":
-            return True
-        p = node.params
-        children = [c for key in ("must", "should", "must_not")
-                    for c in p.get(key, [])]
-        children += list(p.get("queries", []))
-        if isinstance(p.get("query"), QueryNode):
-            children.append(p["query"])
-        return any(walk(c) for c in children)
-
-    return isinstance(req.query, QueryNode) and walk(req.query)
-
-
 class IndexReader:
     """Batched reader over ``index`` with every segment's tensors on
     ``device``: the card by default, the CPU only when the caller asks
@@ -362,7 +445,8 @@ class IndexReader:
     rows on plain strips, ``split``: term-split rows with a head term,
     ``dense``: rows through the dense scorers, fallback waves included,
     ``fallback``: unsound term-split rows re-scored dense, ``tiles``: rows
-    scored in doc-tile waves)."""
+    scored in doc-tile waves, ``sharded``: rows through the doc-sharded
+    dense scan)."""
 
     def __init__(self, index, device="cuda"):
         self.device = torch.device(device)
@@ -404,12 +488,15 @@ class IndexReader:
         self._token_cache: dict = {}
         self._split_fallback_rows = 0
         self.route_rows = {"strip": 0, "split": 0, "dense": 0,
-                           "fallback": 0, "tiles": 0}
+                           "fallback": 0, "tiles": 0, "sharded": 0}
         self.single_routes = {"dense": 0, "sparse_plain": 0,
                               "sparse_split": 0, "split_fallthrough": 0,
                               "pruned": 0, "chunked": 0}
         self.tile_stats = {"ub_launches": 0, "wave_launches": 0,
                            "tiles_scored": 0, "rounds": 0}
+        # segments whose aggregations reduced on the device / were
+        # collected on the host over a fetched mask
+        self.agg_routes = {"device": 0, "host": 0}
 
     # -- term expansion (host, over per-segment dictionaries) ----------------
 
@@ -803,10 +890,6 @@ class IndexReader:
             validate_filter(self.schema, req.filter)
         if mesh is not None:
             raise _not_ported("mesh execution", "multi-GPU")
-        if req.aggs:
-            raise _not_ported("aggregations", "aggregations")
-        if _has_vector_clause(req):
-            raise _not_ported("vector clauses", "vector and hybrid")
 
         sort_plan = SortPlan.from_request(self.schema, req.sort)
         score_fast_path = (sort_plan.is_score_only()
@@ -820,9 +903,20 @@ class IndexReader:
 
         default_fields = (req.fields if req.fields is not None
                           else [f.name for f in self.schema.text_fields])
-        effective_limit = min(
+
+        vector_plan = self._build_vector_plan(req)
+        if vector_plan is not None and not vector_plan.vector_only \
+                and all(c.alpha >= 1.0 for c in vector_plan.clauses):
+            vector_plan = None
+        if vector_plan is not None and vector_plan.vector_only:
+            return self._search_vector_only(req, sort_plan, cursor_state,
+                                            vector_plan)
+
+        base_candidate = min(
             max(req.candidate_size or req.limit, req.limit),
             MAX_CANDIDATE_SIZE)
+        effective_limit = (max(vector_plan.candidate_size, req.limit)
+                           if vector_plan is not None else base_candidate)
         top_k = (effective_limit + 1) if req.return_hits else 0
 
         plan = build_query_plan(req.query, default_fields)
@@ -842,10 +936,17 @@ class IndexReader:
             or req.explain
         has_scored = bool(qualified)
 
+        validate_aggregations(self.schema, req.aggs)
+        agg_pipeline = (AggregationPipeline(req.aggs, highlight_terms,
+                                            self.schema)
+                        if req.aggs else None)
+
         start_time = time.monotonic()
         all_hits: list[RankedHit] = []
         total_matches = 0
         saw_cursor = cursor_state is None
+        agg_results = []
+        text_masks: dict[int, np.ndarray] = {}
         stats = {"scored_docs": 0, "candidates_examined": 0,
                  "postings_advanced": 0}
 
@@ -853,22 +954,36 @@ class IndexReader:
         # waits for the card until the one bulk fetch below (the sparse
         # single route, the pruned jobs and the chunked executor fetch
         # their own results)
-        needs_mask = not score_fast_path or req.collapse is not None
-        use_cursor = cursor_key is not None and score_fast_path
+        # Aggregations that can reduce ON THE DEVICE (ops/device_aggs.py)
+        # skip the doc-axis mask fetch, per segment: a segment whose
+        # columns cannot run there falls back to the host collectors over
+        # a fetched mask.
+        needs_mask_base = not score_fast_path or req.collapse is not None
+        agg_dev_candidate = (agg_pipeline is not None
+                             and not needs_mask_base
+                             and vector_plan is None
+                             and os.environ.get(
+                                 "SEARCHLITE_DEVICE_AGGS", "1") != "0")
+        needs_mask_host = needs_mask_base or agg_pipeline is not None
+        use_cursor = (cursor_key is not None and score_fast_path
+                      and vector_plan is None)
         # doc-tile pruning (ops/tiles.py) is sound only for a plain
-        # score-desc top-k: custom scoring breaks the BM25 upper bound,
-        # cursors need the cursor doc's exact score present
+        # score-desc top-k: aggregations need every match, custom scoring
+        # breaks the BM25 upper bound, cursors need the cursor doc's exact
+        # score present
         prune_min = int(os.environ.get(
             "SEARCHLITE_PRUNE_MIN_POSTINGS", 100_000))
         pruning_ok = (req.execution in ("wand", "bmw")
                       and score_fast_path and req.return_hits
-                      and cursor_state is None and req.collapse is None
+                      and cursor_state is None and agg_pipeline is None
+                      and vector_plan is None and req.collapse is None
                       and not compiled.needs_hook and has_scored)
         pruning_real = False
         pruning_simulated = False
         sparse_single_ok = (
             score_fast_path and req.return_hits
-            and cursor_state is None and req.collapse is None
+            and cursor_state is None and agg_pipeline is None
+            and vector_plan is None and req.collapse is None
             and not compiled.needs_hook and has_scored
             and req.filter is None and not req.explain
             and not plan.phrase_specs and not compiled.filter_slots
@@ -881,27 +996,44 @@ class IndexReader:
 
         def launch_dense(dseg, qargs, masks, cs, eq_mode, cdoc, k):
             (top_scores, top_idx, match_count, final_mask, adjusted,
-             cursor_seen, _text_mask) = self._run_dense(
+             cursor_seen, text_mask) = self._run_dense(
                 dseg, compiled, qargs, *masks, cs, eq_mode, cdoc, k=k,
                 has_scored=has_scored, need_scores=need_scores,
                 use_cursor=use_cursor)
             self.single_routes["dense"] += 1
             fetch = [top_scores, top_idx, match_count, cursor_seen]
+            needs_mask = needs_mask_host
+            agg_refs = []
+            if agg_dev_candidate:
+                plan_da = plan_device_aggs(dseg, req.aggs,
+                                           precision_strict())
+                if plan_da is not None:
+                    meta, agg_refs = launch_device_aggs(dseg, plan_da,
+                                                        final_mask)
+                    qargs["_dev_aggs"] = (meta, len(agg_refs))
+                    needs_mask = needs_mask_base
             if needs_mask:
                 fetch.append(final_mask)
+            qargs["_fetched_mask"] = needs_mask
+            if vector_plan is not None:
+                fetch.append(text_mask)
             if need_scores and not score_fast_path:
                 fetch.append(adjusted)
+            fetch.extend(agg_refs)  # the device partials come LAST
             return (dseg, qargs, fetch)
 
         def run_chunked(dseg, qargs, masks):
             qargs["_chunked_pre"] = self._run_segment_chunked(
-                dseg, compiled, qargs, *masks, has_scored, need_scores)
+                dseg, compiled, qargs, *masks, has_scored, need_scores,
+                vector_plan is not None)
             self.single_routes["chunked"] += 1
             return (dseg, qargs, [])
 
         for dseg in self.device_segments:
             seg = dseg.reader
             if seg.doc_count == 0:
+                if agg_pipeline is not None:
+                    agg_results.append(agg_pipeline.empty_intermediate())
                 continue
             qargs = self._segment_query_args(
                 dseg, qualified, group_keys, compiled.n_leaves,
@@ -994,23 +1126,28 @@ class IndexReader:
                 stats["postings_advanced"] += real_postings
             elif "_chunked_pre" in qargs:
                 # chunked tile execution: host arrays, general branch
-                mask_full, adjusted_np = qargs["_chunked_pre"]
+                mask_full, adjusted_np, text_c = qargs["_chunked_pre"]
                 mask_np = mask_full[:seg.doc_count]
                 top_scores_np = top_idx_np = None
                 match_count = int(mask_np.sum())
                 cursor_seen = False
+                if vector_plan is not None:
+                    text_masks[dseg.ord] = text_c
                 stats["postings_advanced"] += qargs["postings_touched"]
             else:
                 top_scores_np, top_idx_np, match_count, cursor_seen = \
                     fetched[:4]
                 cursor = 4
-                if needs_mask:
+                if qargs.get("_fetched_mask"):
                     mask_np = np.array(fetched[cursor])[:seg.doc_count]
+                    cursor += 1
+                if vector_plan is not None:
+                    text_masks[dseg.ord] = fetched[cursor]
                     cursor += 1
                 if need_scores and not score_fast_path:
                     adjusted_np = fetched[cursor]
                 # postings telemetry: for wand/bmw on requests where real
-                # pruning is off (cursors, hooks, small segments), the
+                # pruning is off (aggs, cursors, hooks, small segments), the
                 # COUNTERFACTUAL postings a block-max pruned traversal
                 # would touch, flagged pruning_simulated in the profile
                 if req.profile and req.execution in ("wand", "bmw") \
@@ -1051,7 +1188,8 @@ class IndexReader:
                 stats["candidates_examined"] += len(matched)
                 ranks = sort_plan.rank_arrays(seg.fast, matched,
                                               matched_scores)
-                if cursor_key is not None and len(matched):
+                if cursor_key is not None and vector_plan is None \
+                        and len(matched):
                     cr = sort_plan.cursor_ranks(cursor_key, seg.fast)
                     gt = np.zeros(len(matched), dtype=bool)
                     eq = np.ones(len(matched), dtype=bool)
@@ -1085,6 +1223,26 @@ class IndexReader:
                     all_hits.extend(
                         RankedHit(key=key, score=float(s))
                         for key, s in zip(keys, top_scores2.tolist()))
+
+            if agg_pipeline is not None:
+                if "_dev_aggs" in qargs:
+                    meta, n_refs = qargs["_dev_aggs"]
+                    agg_results.append(build_intermediates(
+                        meta, fetched[len(fetched) - n_refs:]))
+                    self.agg_routes["device"] += 1
+                else:
+                    agg_results.append(agg_pipeline.collect_segment(
+                        seg, dseg.ord, np.flatnonzero(mask_np)))
+                    self.agg_routes["host"] += 1
+
+        if vector_plan is not None:
+            vector_scores = self._collect_vector_maps(vector_plan, req,
+                                                      text_masks)
+            saw = [saw_cursor]
+            all_hits = self._merge_vector_hits(
+                all_hits, vector_scores, vector_plan, sort_plan,
+                cursor_key, saw)
+            saw_cursor = saw[0]
 
         if not saw_cursor:
             raise CursorError("stale or invalid cursor for this result set")
@@ -1157,6 +1315,10 @@ class IndexReader:
                         hit.inner_hits = inner_hits
                 out_hits.append(hit)
 
+        aggregations = {}
+        if agg_pipeline is not None:
+            aggregations = agg_pipeline.merge_and_finalize(agg_results)
+
         suggest = {}
         if req.suggest:
             suggest = self._execute_suggest(req.suggest)
@@ -1181,9 +1343,312 @@ class IndexReader:
             total_groups=total_groups,
             hits=out_hits,
             next_cursor=next_cursor,
-            aggregations={},
+            aggregations=aggregations,
             suggest=suggest,
             profile=profile,
+        )
+
+    def _build_vector_plan(self, req) -> Optional[VectorPlan]:
+        """The request's vector clauses (``vector_query`` or ``vector``
+        nodes of the query tree) validated and clamped; None without one.
+        ``vector_only`` holds when the query tree has nothing else."""
+        vector_nodes: list = []
+        has_non_vector = [False]
+
+        def collect(node):
+            kind = node.kind
+            if kind == "vector":
+                vector_nodes.append(VectorQuery.from_json(node.params))
+                return
+            if kind == "bool":
+                if node.params.get("filter"):
+                    has_non_vector[0] = True
+                for key in ("must", "should", "must_not"):
+                    for child in node.params.get(key, []):
+                        collect(child)
+                        if child.kind != "vector":
+                            has_non_vector[0] = True
+                return
+            if kind == "dis_max":
+                for child in node.params.get("queries", []):
+                    collect(child)
+                    if child.kind != "vector":
+                        has_non_vector[0] = True
+                return
+            if kind in ("function_score", "script_score"):
+                collect(node.params["query"])
+                has_non_vector[0] = True
+                return
+            has_non_vector[0] = True
+
+        if isinstance(req.query, QueryNode):
+            collect(req.query)
+        else:
+            has_non_vector[0] = True
+
+        if vector_nodes and req.vector_query is not None:
+            raise QueryError(
+                "cannot set both `vector_query` and a `vector` query node")
+        if vector_nodes:
+            vectors = vector_nodes
+        elif req.vector_query is not None:
+            vectors = [req.vector_query]
+        else:
+            return None
+        if len(vectors) > MAX_VECTOR_CLAUSES:
+            raise QueryError(
+                f"too many vector clauses: got {len(vectors)}, max "
+                f"supported {MAX_VECTOR_CLAUSES}")
+        vector_only = not has_non_vector[0]
+        clauses: list[VectorClausePlan] = []
+        max_k = 0
+        total_k = 0
+        base_candidate = min(
+            max(req.candidate_size if req.candidate_size is not None
+                else max(req.limit, 10) * 2, req.limit),
+            MAX_GLOBAL_CANDIDATES)
+        for vq in vectors:
+            field = self.schema.vector_field(vq.field)
+            if field is None:
+                raise QueryError(f"unknown vector field `{vq.field}`")
+            if len(vq.vector) != field.dim:
+                raise QueryError(
+                    f"vector field `{field.name}` expects dimension "
+                    f"{field.dim}, got {len(vq.vector)}")
+            query_vec = [float(v) for v in vq.vector]
+            if field.metric == "cosine":
+                norm = math.sqrt(sum(v * v for v in query_vec))
+                if norm > 0:
+                    query_vec = [v / norm for v in query_vec]
+            alpha = vq.alpha if vq.alpha is not None else DEFAULT_VECTOR_ALPHA
+            if not (0.0 <= alpha <= 1.0) or not math.isfinite(alpha):
+                raise QueryError(
+                    "vector alpha must be a finite value between 0 and 1 "
+                    "inclusive")
+            k = max(vq.k if vq.k is not None else req.limit, 1)
+            k = min(k, MAX_VECTOR_K)
+            candidate_size = (vq.candidate_size
+                              if vq.candidate_size is not None
+                              else max(k, req.limit, 10) * 2)
+            candidate_size = min(max(candidate_size, k),
+                                 MAX_VECTOR_CANDIDATE_SIZE)
+            ef_search = (vq.ef_search if vq.ef_search is not None
+                         else max(DEFAULT_EF_SEARCH, candidate_size))
+            ef_search = min(ef_search, MAX_VECTOR_EF_SEARCH)
+            boost = vq.boost if vq.boost is not None else 1.0
+            if boost < 0.0 or not math.isfinite(boost):
+                raise QueryError(
+                    "vector boost must be finite and non-negative")
+            max_k = max(max_k, k)
+            total_k += k
+            clauses.append(VectorClausePlan(
+                field=vq.field, vector=query_vec, k=k, alpha=alpha,
+                ef_search=ef_search, candidate_size=candidate_size,
+                boost=boost, metric=field.metric))
+        if not clauses:
+            return None
+        candidate_size = max(base_candidate, max_k)
+        if candidate_size + total_k > MAX_GLOBAL_CANDIDATES:
+            candidate_size = max(MAX_GLOBAL_CANDIDATES - total_k, req.limit)
+        if candidate_size == 0:
+            candidate_size = max(max_k, 1)
+        return VectorPlan(clauses=clauses, candidate_size=candidate_size,
+                          vector_only=vector_only)
+
+    def _collect_vector_maps(self, plan: VectorPlan, req,
+                             text_masks: Optional[dict[int, np.ndarray]]
+                             ) -> list[dict]:
+        """Per-clause {(segment_ord, doc): boosted similarity} maps: exact
+        brute force (``ops/vector.py::vector_topk``) over each segment's
+        live docs passing the request's filters (and, for a hybrid
+        request, the text matcher's mask)."""
+        per_clause: list[dict] = [dict() for _ in plan.clauses]
+        for dseg in self.device_segments:
+            seg = dseg.reader
+            if seg.doc_count == 0:
+                continue
+            base_mask = np.ones(seg.doc_count, dtype=bool)
+            for d in seg.deleted:
+                if 0 <= d < seg.doc_count:
+                    base_mask[d] = False
+            if req.filter is not None:
+                base_mask &= compute_filters_mask(seg.fast, [req.filter])
+            if req.vector_filter is not None:
+                base_mask &= compute_filters_mask(
+                    seg.fast, [req.vector_filter])
+            if text_masks is not None:
+                tm = text_masks.get(dseg.ord)
+                if tm is None:
+                    continue
+                base_mask &= tm[:seg.doc_count]
+            for idx, clause in enumerate(plan.clauses):
+                vdata = seg.vectors.get(clause.field)
+                if vdata is None or not vdata.present.any():
+                    continue
+                search_k = min(max(clause.candidate_size, clause.k),
+                               seg.doc_count)
+                query = np.asarray([clause.vector], dtype=np.float32)
+                vf = self.schema.vector_field(clause.field)
+                quant = vf.quantization if vf else None
+                scores, ids = vector_topk(
+                    vdata, base_mask, query, search_k, clause.metric,
+                    quantization=quant, device=self.device)
+                for score, doc in zip(scores[0].tolist(), ids[0].tolist()):
+                    if score == -np.inf:
+                        continue
+                    per_clause[idx][(dseg.ord, int(doc))] = \
+                        float(score) * clause.boost
+        # global truncation per clause to candidate_size, best-first
+        out = []
+        for idx, scores_map in enumerate(per_clause):
+            cap = plan.clauses[idx].candidate_size
+            if cap and len(scores_map) > cap:
+                items = sorted(scores_map.items(),
+                               key=lambda kv: (-kv[1], kv[0]))[:cap]
+                scores_map = dict(items)
+            out.append(scores_map)
+        return out
+
+    def _merge_vector_hits(self, hits: list[RankedHit], vector_scores,
+                           plan: VectorPlan, sort_plan: SortPlan,
+                           cursor_key, saw_cursor: list) -> list[RankedHit]:
+        """Blend the text hits with the clauses' vector hits: every
+        candidate of either side gets its hybrid score and a fresh sort
+        key; the cursor skip happens here, on the blended keys."""
+        bm25_map = {(h.key.segment_ord, h.key.doc_id): h for h in hits}
+        candidate_keys = set(bm25_map)
+        for scores_map in vector_scores:
+            candidate_keys.update(scores_map)
+        all_vector_only = all(c.alpha <= 0.0 for c in plan.clauses)
+        merged: list[RankedHit] = []
+        for key_tuple in candidate_keys:
+            seg_ord, doc = key_tuple
+            existing = bm25_map.get(key_tuple)
+            bm25_score = existing.score if existing else 0.0
+            explanation = existing.explanation if existing else None
+            final_score, vector_score, has_vector = compute_hybrid_score(
+                key_tuple, bm25_score, plan, vector_scores)
+            if all_vector_only and not has_vector:
+                continue
+            if explanation is not None:
+                explanation["final_score"] = final_score
+            seg = self.segments[seg_ord]
+            key = sort_plan.build_key(seg.fast, doc, final_score, seg_ord)
+            if cursor_key is not None:
+                cmp = key._cmp(cursor_key)
+                if cmp == 0:
+                    saw_cursor[0] = True
+                if cmp <= 0:
+                    continue
+            merged.append(RankedHit(key=key, score=final_score,
+                                    vector_score=vector_score,
+                                    explanation=explanation))
+        return merged
+
+    def _search_vector_only(self, req, sort_plan: SortPlan, cursor_state,
+                            plan: VectorPlan) -> SearchResult:
+        """A request whose query tree holds only vector clauses: the
+        clauses' hits are the match set; aggregations collect on the host
+        over them."""
+        score_fast_path = (sort_plan.is_score_only()
+                           and sort_plan.primary_order() == "desc")
+        cursor_key = cursor_state["key"] if cursor_state else None
+        cursor_returned = cursor_state["returned"] if cursor_state else 0
+        validate_aggregations(self.schema, req.aggs)
+        agg_pipeline = (AggregationPipeline(req.aggs, [], self.schema)
+                        if req.aggs else None)
+        vector_scores = self._collect_vector_maps(plan, req, None)
+
+        saw_cursor = [cursor_state is None or not req.return_hits]
+        total_matches = 0
+        hits: list[RankedHit] = []
+        agg_results = []
+        seg_docs_by_ord: dict[int, set[int]] = {}
+        for scores_map in vector_scores:
+            for (seg_ord, doc) in scores_map:
+                seg_docs_by_ord.setdefault(seg_ord, set()).add(doc)
+        for dseg in self.device_segments:
+            seg = dseg.reader
+            docs = sorted(seg_docs_by_ord.get(dseg.ord, ()))
+            matched_for_aggs = []
+            for doc in docs:
+                key_tuple = (dseg.ord, doc)
+                final_score, vector_score, _ = compute_hybrid_score(
+                    key_tuple, 0.0, plan, vector_scores)
+                if req.return_hits:
+                    key = sort_plan.build_key(
+                        seg.fast, doc, final_score, dseg.ord)
+                    if cursor_key is not None:
+                        cmp = key._cmp(cursor_key)
+                        if cmp == 0:
+                            saw_cursor[0] = True
+                        if cmp <= 0:
+                            continue
+                total_matches += 1
+                matched_for_aggs.append(doc)
+                if req.return_hits:
+                    hits.append(RankedHit(key=key, score=final_score,
+                                          vector_score=vector_score))
+            if agg_pipeline is not None:
+                agg_results.append(agg_pipeline.collect_segment(
+                    seg, dseg.ord,
+                    np.asarray(matched_for_aggs, dtype=np.int64)))
+                self.agg_routes["host"] += 1
+        if not saw_cursor[0]:
+            raise CursorError("stale or invalid cursor for this result set")
+
+        if req.return_hits:
+            hits.sort(key=lambda h: _KeyWrap(h.key))
+
+        total_groups = None
+        group_inner: list[list[RankedHit]] = []
+        if req.return_hits and req.collapse is not None:
+            ensure_keyword_fast(self.schema, req.collapse.field, "collapse")
+            groups = self._collapse_hits(hits, req.collapse, sort_plan)
+            total_groups = len(groups)
+            group_inner = [inner for _top, inner in groups]
+            hits = [top for top, _inner in groups]
+
+        next_cursor = None
+        out_hits: list[Hit] = []
+        if req.return_hits:
+            if len(hits) > req.limit:
+                last = hits[req.limit - 1]
+                next_cursor = encode_cursor(
+                    self.generation, cursor_returned + req.limit, last.key,
+                    sort_plan, score_fast_path)
+                hits = hits[:req.limit]
+                group_inner = group_inner[:req.limit]
+            for i, h in enumerate(hits):
+                hit = self._materialize_hit(h, req, [], {})
+                if hit is None:
+                    continue
+                if group_inner and i < len(group_inner) and group_inner[i]:
+                    inner_hits = [
+                        ih for rh in group_inner[i]
+                        if (ih := self._materialize_hit(rh, req, [], {}))
+                        is not None
+                    ]
+                    if inner_hits:
+                        hit.inner_hits = inner_hits
+                out_hits.append(hit)
+
+        aggregations = {}
+        if agg_pipeline is not None:
+            aggregations = agg_pipeline.merge_and_finalize(agg_results)
+        suggest = self._execute_suggest(req.suggest) if req.suggest else {}
+        return SearchResult(
+            total_hits_estimate=total_matches + cursor_returned,
+            total_groups=total_groups,
+            hits=out_hits,
+            next_cursor=next_cursor,
+            aggregations=aggregations,
+            suggest=suggest,
+            profile={"execution": {"scored_docs": total_matches,
+                                   "candidates_examined": total_matches,
+                                   "postings_advanced": 0},
+                     "rescore": None,
+                     "timings": {}} if req.profile else None,
         )
 
     def _run_dense(self, dseg, compiled, qargs, phrase_masks, filter_masks,
@@ -1392,13 +1857,16 @@ class IndexReader:
 
     def _run_segment_chunked(self, dseg, compiled, qargs, phrase_masks,
                              filter_masks, col_vals, col_has, root_mask,
-                             has_scored: bool, need_scores: bool):
+                             has_scored: bool, need_scores: bool,
+                             need_text_mask: bool = False):
         """Exact full execution in tile-column chunks (JAX
         ``_run_segment_chunked``) for segments whose dense [S, n1] impact
         matrix would pass int32 indexing or the memory budget. Every tile
         is scored (no pruning); the per-column mask and adjusted outputs
         are stitched back into doc-space host arrays and flow through the
-        general result path. Returns (mask [n1] bool, adjusted [n1] f32)."""
+        general result path. Returns (mask [n1] bool, adjusted [n1] f32,
+        text mask [n1] bool or None: the matcher's mask before filters,
+        which a hybrid request needs)."""
         tl = get_tile_index(dseg)
         s_pad = qargs["s_pad"]
         budget = int(os.environ.get(
@@ -1434,18 +1902,22 @@ class IndexReader:
             self.tile_stats["wave_launches"] += 1
             launches.append((start * tl.T, n_cols, refs))
 
+        n_out = 3 if need_text_mask else 2
         vals = iter(_fetch([x for _lo, _n, refs in launches
-                            for x in refs[:2]]))
+                            for x in refs[:n_out]]))
         n1 = dseg.n1
         mask_np = np.zeros(n1, dtype=bool)
         adjusted_np = np.zeros(n1, dtype=np.float32)
+        text_np = np.zeros(n1, dtype=bool) if need_text_mask else None
         for lo, n_cols, _refs in launches:
             fm = next(vals)
             adj = next(vals)
             hi = min(lo + n_cols, n1)
             mask_np[lo:hi] = fm[:hi - lo]
             adjusted_np[lo:hi] = adj[:hi - lo]
-        return mask_np, adjusted_np
+            if need_text_mask:
+                text_np[lo:hi] = next(vals)[:hi - lo]
+        return mask_np, adjusted_np, text_np
 
     def _pruned_postings(self, dseg, qargs, top_scores_np,
                          limit: int, strategy: str) -> int:
@@ -2171,7 +2643,8 @@ class IndexReader:
                         dseg, qb, k, fidx, distinct, pending=pend)
                 else:
                     scores, ids = self._oversized_launch(
-                        dseg, qb, k, fidx, m_budget, pend)
+                        dseg, qb, k, fidx, distinct, est_bytes, m_budget,
+                        pend)
                 for rec in pend:
                     rec["bi"] = bi
                     rec["li"] = len(launched)
@@ -2360,14 +2833,16 @@ class IndexReader:
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(arr), device=self.device)
 
-    def _oversized_launch(self, dseg, qb, k: int, fidx, m_budget: int,
-                          pending: list):
-        """A segment over the dense-M budget: candidate strips with the
-        oversized-corpus cap, term-split rows included (JAX
-        ``search_batch_many``, ``reader.py:2407-2424``). When no row fits
-        the cap, or no term of the batch is in the segment, every row
-        rides full strips. Filtered and k > 1024 batches need the
-        doc-sharded dense scan."""
+    def _oversized_launch(self, dseg, qb, k: int, fidx, distinct,
+                          est_bytes: int, m_budget: int, pending: list):
+        """A segment over the dense-M budget (JAX ``search_batch_many``,
+        ``reader.py:2407-2424``): unfiltered batches try the candidate
+        strips with the oversized-corpus cap, term-split rows included;
+        when no row fits the cap, or no term of the batch is in the
+        segment, every row rides full strips (where the JAX reader takes
+        the scan: either is exact, and full strips are the faster on this
+        card). Filtered batches, k > 1024 and batches the strips cannot
+        hold take the doc-sharded dense scan."""
         out = None
         if fidx is None:
             out = self._try_sparse_candidates(dseg, qb, k,
@@ -2379,10 +2854,102 @@ class IndexReader:
                     nq = int(qb["n_queries"])
                     out = (out[0][:nq], out[1][:nq])
         if out is None:
-            raise _not_ported(
-                "filtered or k > 1024 batches over the dense-M budget "
-                "(SEARCHLITE_M_BUDGET_BYTES)", "_search_batch_sharded")
+            del pending[:]
+            out = self._search_batch_sharded(dseg, qb, k, est_bytes,
+                                             m_budget, fidx, distinct)
         return out
+
+    def _search_batch_sharded(self, dseg, qb, limit: int, est_bytes: int,
+                              budget: int, fidx=None, distinct=None,
+                              n_rows: Optional[int] = None):
+        """The doc-sharded dense scan (JAX ``_search_batch_sharded``) for a
+        batch whose dense M would pass the memory budget or int32
+        indexing: the doc axis is cut into ``n_shards`` ranges
+        (``DeviceSegment.doc_shards``), each shard scores through the
+        block scorer and the fused kernel at N = ``shard_width + 1`` with
+        the shard's deleted and filter rows, and the shards' top-k lists
+        merge on the device in (score desc, doc asc) order, so no launch
+        waits for a copy. ``n_rows`` is the count of real rows for
+        ``route_rows`` (default: every row of ``qb``). Returns (scores
+        [Q, kk], ids [Q, kk] int32) device tensors, kk = min(limit, the
+        shards' lists together)."""
+        ensure_dense_tables(qb)
+        n_shards = 1
+        while est_bytes // n_shards > budget:
+            n_shards *= 2
+        # a shard's flat scatter must also fit int32 indexing (the byte
+        # budget usually implies it; not when the budget is raised or
+        # FLAT_INDEX_LIMIT is lowered)
+        while (qb["s_pad"] * (-(-dseg.n1 // n_shards) + 1)
+               + qb["nb_pad"] * 128 >= FLAT_INDEX_LIMIT
+               and n_shards < dseg.n1):
+            n_shards *= 2
+        shards = dseg.doc_shards(n_shards)
+        width = shards["shard_width"]
+        n_terms = shards["n_terms"]
+        tids = qb["slot_tids"]
+        s_pad = qb["s_pad"]
+        q = int(qb["n_queries"])
+        self.route_rows["sharded"] += q if n_rows is None else n_rows
+        # one [n_shards, 2, s_pad] upload of per-slot block ranges; the
+        # O(blocks) gather tables expand on the device
+        bs_stack = np.zeros((n_shards, 2, s_pad), dtype=np.int32)
+        nb = np.ones(n_shards, dtype=np.int64)
+        for d in range(n_shards):
+            keys = d * n_terms + tids
+            bcnts = shards["blocks"][keys]
+            bs_stack[d, 0, :len(tids)] = shards["block_base"][keys]
+            bs_stack[d, 1, :len(tids)] = bcnts
+            nb[d] = max(int(bcnts.sum()), 1)
+        pad_cols = n_shards * width - dseg.n1
+
+        def shard_stack(rows, fill: bool):
+            """[R, n1] bool on the device as [n_shards, R, width + 1]:
+            each shard's columns, ``fill`` past n1 and in the shard's
+            sentinel column."""
+            r = rows.shape[0]
+            full = torch.nn.functional.pad(rows, (0, pad_cols), value=fill)
+            cut = full.reshape(r, n_shards, width).permute(1, 0, 2)
+            return torch.nn.functional.pad(cut, (0, 1),
+                                           value=fill).contiguous()
+
+        del_stack = shards.get("deleted_stack")
+        if del_stack is None:
+            del_stack = shard_stack(dseg.deleted[None, :], True)[:, 0]
+            shards["deleted_stack"] = del_stack = del_stack.contiguous()
+        bs_dev = self._upload(bs_stack)
+        w_idx_dev = self._upload(qb["w_idx"])
+        w_val_dev = self._upload(qb["w_val"])
+        rows_dev = fidx_dev = None
+        if fidx is not None:
+            rows_dev = shard_stack(
+                self._segment_filter_rows(dseg, distinct), False)
+            fidx_dev = self._upload(fidx)
+        all_scores, all_ids = [], []
+        for d in range(n_shards):
+            lo = d * width
+            if min(lo + width, dseg.n1) <= lo:
+                continue  # trailing empty shard (n_shards rounded up)
+            scores, ids = expand_impact_scorer(
+                shards["block_docs"], shards["block_impacts"], del_stack[d],
+                bs_dev[d, 0], bs_dev[d, 1], shards["sentinel_row"],
+                w_idx_dev, w_val_dev,
+                None if rows_dev is None else rows_dev[d], fidx_dev,
+                k=min(limit, width), s_pad=s_pad, nb_pad=int(nb[d]),
+                n_queries=q)
+            all_scores.append(scores)
+            all_ids.append(ids + lo)
+        # the merge of np.lexsort((ids, -scores)): two stable sorts, doc
+        # ascending then score descending; -inf entries end each row
+        cat_scores = torch.cat(all_scores, dim=1)
+        cat_ids = torch.cat(all_ids, dim=1)
+        by_doc = torch.argsort(cat_ids, dim=1, stable=True)
+        cat_scores = torch.gather(cat_scores, 1, by_doc)
+        cat_ids = torch.gather(cat_ids, 1, by_doc)
+        order = torch.argsort(cat_scores, dim=1, descending=True,
+                              stable=True)[:, :limit]
+        return (torch.gather(cat_scores, 1, order),
+                torch.gather(cat_ids, 1, order))
 
     def _launch_batch_segment(self, dseg, qb, k: int, fidx=None,
                               distinct=None, allow_sparse: bool = True,
@@ -2477,17 +3044,8 @@ class IndexReader:
         light_map[:len(light_idx)] = light_idx
         if len(heavy_idx):
             hqb = subset_impact_batch(qb, heavy_idx)
-            if shard_budget:
-                out_h = self._full_strip_launch(dseg, hqb, k)
-                if out_h is None:
-                    raise _not_ported(
-                        "rows the full strips cannot hold over the "
-                        "dense-M budget", "_search_batch_sharded")
-            else:
-                out_h = self._launch_batch_segment(
-                    dseg, hqb, k, allow_sparse=False,
-                    n_rows=len(heavy_idx))
-            hs, hi = out_h
+            hs, hi = self._remainder_launch(dseg, hqb, k, shard_budget,
+                                            len(heavy_idx))
             heavy_map = np.full(hs.shape[0], nq, dtype=np.int32)
             heavy_map[:len(heavy_idx)] = heavy_idx
         else:
@@ -2497,6 +3055,34 @@ class IndexReader:
         return row_combine(ts, td, hs, hi,
                            self._upload(np.concatenate(
                                [light_map, heavy_map])), n_rows=nq)
+
+    def _remainder_launch(self, dseg, hqb, k: int, shard_budget: int,
+                          n_rows: int):
+        """Score a re-packed subset of a batch's rows (the strips'
+        remainder, or rows whose certificate failed) exactly. Under the
+        budget: the dense scorers. Over it (``shard_budget`` set), as the
+        JAX reader: full strips; else the doc-sharded scan when the
+        subset's own dense M is still over the budget or int32 indexing;
+        else the dense scorers, because a subset of rows may fit where
+        the batch did not. Returns (scores, ids) device tensors, at least
+        ``n_rows`` rows."""
+        if shard_budget:
+            out = self._full_strip_launch(dseg, hqb, k)
+            if out is not None:
+                return out
+            est = (hqb["s_pad"] + hqb["n_queries"]) * dseg.n1 * 4
+            if est > shard_budget or hqb["flat_extent"] >= FLAT_INDEX_LIMIT:
+                hs, hi = self._search_batch_sharded(
+                    dseg, hqb, k, est, shard_budget, n_rows=n_rows)
+                if hs.shape[1] < k:
+                    # the shards together hold fewer than k docs
+                    pad = (0, k - hs.shape[1])
+                    hs = torch.nn.functional.pad(hs, pad,
+                                                 value=float("-inf"))
+                    hi = torch.nn.functional.pad(hi, pad, value=0)
+                return hs, hi
+        return self._launch_batch_segment(dseg, hqb, k, allow_sparse=False,
+                                          n_rows=n_rows)
 
     def _full_strip_launch(self, dseg, qb, k: int):
         """Exact, certificate-free scoring on full strips: every term of
@@ -2652,16 +3238,8 @@ class IndexReader:
             self._split_fallback_rows += len(bad)
             self.route_rows["fallback"] += len(bad)
             hqb = subset_impact_batch(rec["qb"], np.asarray(bad))
-            if rec["shard_budget"]:
-                out = self._full_strip_launch(dseg, hqb, rec["k"])
-                if out is None:
-                    raise _not_ported(
-                        "fallback rows the full strips cannot hold over "
-                        "the dense-M budget", "_search_batch_sharded")
-            else:
-                out = self._launch_batch_segment(
-                    dseg, hqb, rec["k"], allow_sparse=False,
-                    n_rows=len(bad))
+            out = self._remainder_launch(dseg, hqb, rec["k"],
+                                         rec["shard_budget"], len(bad))
             patches.append((rec, bad, out[0], out[1]))
         if not patches:
             return
@@ -3294,12 +3872,14 @@ def _plan_sig(plan: QueryPlan) -> str:
             f"{len(plan.term_groups)}|{len(plan.phrase_specs)}")
 
 
-_NUMPY_OF = {torch.float32: np.float32, torch.int32: np.int32,
-             torch.int64: np.int64, torch.bool: np.bool_}
+_NUMPY_OF = {torch.float32: np.float32, torch.float64: np.float64,
+             torch.int32: np.int32, torch.int64: np.int64,
+             torch.bool: np.bool_}
 
 
 def _fetch(tensors: list[torch.Tensor]) -> list[np.ndarray]:
-    """One device-to-host copy of many tensors (f32, int32, int64, bool):
+    """One device-to-host copy of many tensors (f32, f64, int32, int64,
+    bool):
     their bytes are concatenated, each padded to 8 bytes, and split back
     into numpy arrays of their own dtypes and shapes."""
     if not tensors:

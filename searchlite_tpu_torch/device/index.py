@@ -352,6 +352,9 @@ class DeviceSegment:
         self._flat_postings = None
         self._tile_index = None  # ops/tiles.py::get_tile_index
         self.filter_rows_cache = None  # (filter key, [F+1, n1] bool)
+        self._doc_shards = None  # doc_shards(n_shards), the last n_shards
+        # ops/device_aggs.py: per-spec bucket structures and their tensors
+        self.agg_struct_cache: dict = {}
 
     def flat_postings(self) -> dict[str, torch.Tensor]:
         """The flat CSR postings on this segment's device (keys
@@ -367,14 +370,89 @@ class DeviceSegment:
     def evict_device_caches(self) -> None:
         """Drop the device residents that can be rebuilt from the host
         build (the dense rows, the heavy-term lookup, the filter rows, the
-        flat postings, the tile tables' tensors). Called when a pruned wave launch runs out of
-        device memory; the next query that needs one uploads it again."""
+        flat postings, the tile tables' tensors, the doc-shard tables with
+        their deleted stack, the aggregation structures, the vector
+        matrices). Called when a launch runs out of device memory; the
+        next query that needs one uploads it again."""
         self._dense_rows = {}
         self._heavy_lookup = {}
         self._flat_postings = None
         self.filter_rows_cache = None
+        self._doc_shards = None
+        self.agg_struct_cache = {}
+        for vdata in getattr(self.reader, "vectors", {}).values():
+            vdata.__dict__.pop("_torch_vectors", None)
         if self._tile_index is not None:
             self._tile_index.drop_tensors()
+
+    def doc_shards(self, n_shards: int) -> dict:
+        """The doc-sharded layout of the segment's postings (JAX
+        ``DeviceSegment.doc_shards``): the flat postings re-sorted by
+        (doc shard, term, doc), each (term, shard) run re-blocked 128 wide
+        with LOCAL doc ordinals, the local sentinel doc ``shard_width``
+        (a shard's doc axis is ``shard_width + 1`` wide). Every shard's
+        slice is still term-major and doc-ascending, so one shard scores
+        through the same block gather as a whole segment. ``block_docs``
+        int32 and ``block_impacts`` f32 (RAW impacts: tombstones are
+        masked by the shard's deleted row) go to the segment's device;
+        ``block_base`` / ``blocks`` / ``counts`` (per key
+        ``shard * n_terms + term``), ``docs_sh_np`` / ``imps_sh_np`` /
+        ``posting_base`` stay on the host. Cached for the last
+        ``n_shards``."""
+        cached = self._doc_shards
+        if cached is not None and cached["n_shards"] == n_shards:
+            return cached
+        host = self.host
+        docs_flat = host.docs_flat_np
+        n_terms = len(self.reader.postings.terms)
+        term_df = self.reader.postings.term_df.astype(np.int64)
+        term_of_posting = np.repeat(
+            np.arange(n_terms, dtype=np.int32), term_df)
+        shard_width = -(-self.n1 // n_shards)
+        shard_of = (docs_flat // shard_width).astype(np.int32)
+        order = np.lexsort((docs_flat, term_of_posting, shard_of))
+        docs_sh = (docs_flat[order] - shard_of[order].astype(np.int64)
+                   * shard_width).astype(np.int32)
+        imps_sh = host.impacts_flat_np[order]
+        # per-(term, shard) posting counts: the key is sorted by
+        # (shard, term), so offsets come from a bincount over key ids
+        key = shard_of[order].astype(np.int64) * n_terms + \
+            term_of_posting[order]
+        counts = np.bincount(key, minlength=n_shards * n_terms)
+        base = np.concatenate([[0], np.cumsum(counts)])
+        blocks = -(-counts // 128)
+        block_base = np.concatenate([[0], np.cumsum(blocks)])
+        total_blocks = int(block_base[-1])
+        bdocs = np.full((total_blocks + 1, 128), shard_width,
+                        dtype=np.int32)
+        bimps = np.zeros((total_blocks + 1, 128), dtype=np.float32)
+        if len(docs_sh):
+            run_of = np.repeat(np.arange(len(counts), dtype=np.int64),
+                               counts)
+            offset = np.arange(len(docs_sh), dtype=np.int64) \
+                - base[:-1][run_of]
+            dest = block_base[:-1][run_of] * 128 + offset
+            bdocs.reshape(-1)[dest] = docs_sh
+            bimps.reshape(-1)[dest] = imps_sh
+        tensors = from_host_arrays(
+            {"block_docs": bdocs, "block_impacts": bimps}, self.device,
+            keys=("block_docs", "block_impacts"))
+        cached = {
+            "n_shards": n_shards,
+            "shard_width": int(shard_width),
+            "block_docs": tensors["block_docs"],
+            "block_impacts": tensors["block_impacts"],
+            "block_base": block_base,
+            "blocks": blocks,
+            "sentinel_row": total_blocks,
+            "counts": counts,
+            "n_terms": n_terms,
+            "docs_sh_np": docs_sh,
+            "imps_sh_np": imps_sh,
+            "posting_base": base,
+        }
+        self._doc_shards = cached
+        return cached
 
     def dense_rows(self, budget_bytes: int):
         """Resident dense impact rows for the highest-df terms (df >=

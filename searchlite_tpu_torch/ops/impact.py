@@ -610,3 +610,44 @@ def split_impact_scorer(block_docs, block_impacts, m_dense, deleted, packed,
     ws = densify_w(ws_idx, ws_val, n_queries, s_pad)
     return fused_topk(wd, m_dense, deleted, k=k, w2=ws, m2=m_sparse,
                       filter_rows=filter_rows, fidx=fidx)
+
+
+def expand_block_tables(slot_bstart, slot_bcnt, sentinel_row: int,
+                        nb_pad: int):
+    """:func:`build_block_tables` on the device
+    (``ops/impact.py::expand_block_tables_dev``): per-slot block ranges
+    (``slot_bstart`` / ``slot_bcnt`` [s] int tensors) expanded into
+    (blk_idx, slot_row) [nb_pad] int32 gather tables; positions past the
+    ranges' total name ``sentinel_row`` and slot 0. Position p belongs to
+    the slot whose cumulative end first passes it: a binary search over
+    the ends (the JAX op scatters marks at the ends, dropping the one at
+    ``nb_pad``, and scans; a scatter-add past the end raises here)."""
+    s = slot_bcnt.shape[0]
+    dev = slot_bcnt.device
+    cnt = slot_bcnt.long()
+    ends = torch.cumsum(cnt, dim=0)
+    begin = ends - cnt
+    positions = torch.arange(nb_pad, dtype=torch.int64, device=dev)
+    rid = torch.clamp(torch.searchsorted(ends, positions, right=True),
+                      max=s - 1)
+    valid = positions < ends[s - 1]
+    blk = slot_bstart.long()[rid] + (positions - begin[rid])
+    blk_idx = torch.where(valid, blk, sentinel_row).to(torch.int32)
+    slot_row = torch.where(valid, rid, 0).to(torch.int32)
+    return blk_idx, slot_row
+
+
+def expand_impact_scorer(block_docs, block_impacts, deleted, slot_bstart,
+                         slot_bcnt, sentinel_row: int, w_idx, w_val,
+                         filter_rows=None, fidx=None, *, k: int, s_pad: int,
+                         nb_pad: int, n_queries: int):
+    """:func:`impact_scorer` from per-slot block ranges
+    (``make_expand_impact_scorer``): the gather tables are expanded on
+    the device, so a launch uploads O(slots), not O(blocks). The
+    doc-sharded scan calls it once a shard over the shard's own tables,
+    with ``deleted`` [shard_width + 1]."""
+    blk_idx, slot_row = expand_block_tables(slot_bstart, slot_bcnt,
+                                            sentinel_row, nb_pad)
+    return impact_scorer(block_docs, block_impacts, deleted, blk_idx,
+                         slot_row, w_idx, w_val, filter_rows, fidx, k=k,
+                         s_pad=s_pad, n_queries=n_queries)

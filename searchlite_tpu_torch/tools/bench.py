@@ -97,7 +97,7 @@ def run(docs: int, device: str, repeat: int = 8) -> dict:
               "card": chip_smoke.card_line() if on_card else None,
               "docs": docs, "score_mode": "f32_strict"}
     t0 = time.perf_counter()
-    index = chip_smoke.build_index()
+    index, _vectors = chip_smoke.build_index()
     detail["index_build_s"] = round(time.perf_counter() - t0, 2)
     reader = index.reader(device=device)
     batches = bench.build_queries()

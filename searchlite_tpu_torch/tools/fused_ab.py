@@ -273,7 +273,7 @@ def profile_batches(results: list) -> None:
     chip_smoke = _smoke()
     import bench
 
-    index = chip_smoke.build_index()
+    index, _vectors = chip_smoke.build_index()
     reader = index.reader()
     queries = bench.build_queries()[1][:256]
     filters = [chip_smoke.FILTERS[i % len(chip_smoke.FILTERS)]

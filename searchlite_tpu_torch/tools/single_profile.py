@@ -1,7 +1,7 @@
 """Profile of single-query ``search()`` on the card, per route.
 
     python -m searchlite_tpu_torch.tools.single_profile [--docs N]
-                                                        [--streams-only]
+        [--streams-only] [--sharded] [--aggs] [--vectors]
 
 Run from the repository root on a machine with an NVIDIA GPU. Builds
 ``chip_smoke``'s index over ``bench.py``'s corpus at ``N`` docs (default
@@ -36,6 +36,21 @@ single routes switched off (``SEARCHLITE_SINGLE_SPARSE=0``) so that the
    per-query rounds) and, over one call under cProfile, the host
    functions with the most own time. ``--streams-only`` runs only this
    set (and writes ``single_profile_streams[_<N>].json``).
+
+``--sharded``, ``--aggs`` and ``--vectors`` run, in place of the sets
+above, ``chip_smoke``'s phase-e requests (and write
+``single_profile_phase_e[_<N>].json``):
+
+8. ``--sharded``: the filtered 1024-query batch at the default budget (the
+   doc-sharded dense scan, two shards at 100k docs) and the 32-query
+   ``limit=2000`` batch with the budget at a quarter of its dense-M
+   estimate (four shards), as ``search_batch`` calls;
+9. ``--aggs``: the eight device-kind aggregation requests at the default
+   precision, reduced on the card and, with ``SEARCHLITE_DEVICE_AGGS=0``,
+   collected on the host over the fetched mask;
+10. ``--vectors``: a vector-only request over the 128-wide cosine field,
+    a hybrid request (alpha 0.5) with a filter, and a vector-only request
+    on the bf16 and on the int8 field.
 
 For each set: the segments per route, the unprofiled wall per query (host
 clock around a call that ends in a synchronise; p50, min, max), and over
@@ -106,7 +121,9 @@ def _measure(reader, queries, name: str, passes: int, extra: dict) -> dict:
     from searchlite_tpu_torch.tools.fused_ab import _device_events
 
     def search(q):
-        return reader.search({"query": q, "limit": 10, **extra})
+        # a query string, or a whole request
+        req = q if isinstance(q, dict) else {"query": q, "limit": 10}
+        return reader.search({**req, **extra})
 
     for q in queries:
         search(q)  # warm
@@ -172,7 +189,9 @@ def _host_top(run, calls: int, n: int = 10) -> list:
             for (f, line, name), (_cc, _nc, tt, _ct, _callers) in rows]
 
 
-def measure_stream(reader, stream, execution: str, calls: int = 3) -> dict:
+def measure_stream(reader, stream, execution: str, calls: int = 3,
+                   name: str | None = None, limit: int = 10,
+                   filters=None) -> dict:
     """One ``search_batch_many`` stream in arrays form: wall per call over
     ``calls`` calls, then ``calls`` profiled calls, then one call under
     cProfile (the host functions with the most own time)."""
@@ -181,9 +200,11 @@ def measure_stream(reader, stream, execution: str, calls: int = 3) -> dict:
 
     from searchlite_tpu_torch.tools.fused_ab import _device_events
 
+    name = name or f"stream {execution}"
+
     def call():
-        reader.search_batch_many(stream, limit=10, output="arrays",
-                                 execution=execution)
+        reader.search_batch_many(stream, limit=limit, output="arrays",
+                                 execution=execution, filters=filters)
 
     call()  # warm
     rows = dict(reader.route_rows)
@@ -206,7 +227,7 @@ def measure_stream(reader, stream, execution: str, calls: int = 3) -> dict:
     busy = sum(kernels.values())
     n_queries = sum(len(b) for b in stream)
     wall = float(np.median(walls))
-    rec = {"name": f"stream {execution}", "queries": n_queries,
+    rec = {"name": name, "queries": n_queries,
            "rows_per_route": {k: (reader.route_rows[k] - rows[k])
                               // (2 * calls) for k in rows},
            "tile_stats_per_call": {k: (reader.tile_stats[k] - stats[k])
@@ -217,7 +238,7 @@ def measure_stream(reader, stream, execution: str, calls: int = 3) -> dict:
            "device_busy_ms": busy, "busy_share": busy / prof_wall,
            "kernels": kernels}
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:4]
-    print(f"stream {execution}: {n_queries} queries a call, rows per route "
+    print(f"{name}: {n_queries} queries a call, rows per route "
           f"{rec['rows_per_route']}, tile stats a call "
           f"{rec['tile_stats_per_call']}; wall median {wall:.2f} ms "
           f"({rec['qps']:.0f} QPS; calls "
@@ -244,6 +265,12 @@ def main() -> int:
     ap.add_argument("--docs", type=int, default=bench.N_DOCS)
     ap.add_argument("--streams-only", action="store_true",
                     help="skip the single-query sets")
+    ap.add_argument("--sharded", action="store_true",
+                    help="the doc-sharded batches of chip_smoke's phase e")
+    ap.add_argument("--aggs", action="store_true",
+                    help="the aggregation requests of phase e")
+    ap.add_argument("--vectors", action="store_true",
+                    help="the vector and hybrid requests of phase e")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAILED: torch.cuda.is_available() is False")
@@ -253,7 +280,8 @@ def main() -> int:
     card = chip_smoke.card_line()
     print(card, flush=True)
     os.environ["SEARCHLITE_PRECISION"] = "f32_strict"
-    reader = chip_smoke.build_index().reader()
+    index, vectors = chip_smoke.build_index()
+    reader = index.reader()
     dseg = reader.device_segments[0]
     tl = get_tile_index(dseg)
     n_post = int(dseg.reader.postings.term_df.sum())
@@ -268,6 +296,9 @@ def main() -> int:
     singles = bench.build_queries()[0]
     out = {"card": card, "docs": args.docs, "resident": resident,
            "sets": []}
+    if args.sharded or args.aggs or args.vectors:
+        phase_e(reader, chip_smoke, vectors, args, out)
+        return write(out, "_phase_e", args.docs)
     if not args.streams_only:
         out["sets"].append(measure(reader, singles[:9], "default singles",
                                    passes=3))
@@ -308,13 +339,77 @@ def main() -> int:
     routes = dict(reader.single_routes)
     out["single_routes"] = routes
     print(f"segments per route over the run: {routes}", flush=True)
+    return write(out, "_streams" if args.streams_only else "", args.docs)
+
+
+def write(out: dict, suffix: str, docs: int) -> int:
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
-    suffix = ("_streams" if args.streams_only else "") \
-        + ("" if args.docs == 100_000 else f"_{args.docs}")
+    suffix += "" if docs == 100_000 else f"_{docs}"
     with open(os.path.join(REPO, "chiprun_out",
                            f"single_profile{suffix}.json"), "w") as fh:
         json.dump(out, fh, indent=1)
     return 0
+
+
+def phase_e(reader, chip_smoke, vectors, args, out: dict) -> None:
+    """The sets of ``--sharded``, ``--aggs`` and ``--vectors``."""
+    import bench
+
+    if args.sharded:
+        dseg = reader.device_segments[0]
+        b1024 = bench.build_queries()[1]
+        filters = [chip_smoke.FILTERS[i % len(chip_smoke.FILTERS)]
+                   for i in range(len(b1024))]
+        out["sets"].append(measure_stream(
+            reader, [b1024], "bm25", name="sharded b1024 filtered",
+            filters=[filters]))
+        qb = reader._qb_lazy_native(dseg.reader, dseg, [b1024[:32]], 0,
+                                    ["body"], [None])
+        est = (qb["s_pad"] + 32) * dseg.n1 * 4
+        os.environ["SEARCHLITE_M_BUDGET_BYTES"] = str(est // 4)
+        try:
+            out["sets"].append(measure_stream(
+                reader, [b1024[:32]], "bm25", name="sharded b32 k=2000",
+                limit=2000))
+        finally:
+            del os.environ["SEARCHLITE_M_BUDGET_BYTES"]
+        out["route_rows"] = dict(reader.route_rows)
+    if args.aggs:
+        # at the default precision: under f32_strict stats stay on the host
+        precision = os.environ.pop("SEARCHLITE_PRECISION")
+        try:
+            reqs = [{"query": "tok5 tok9 tok40", "limit": 10, "aggs": aggs}
+                    for _name, aggs, on_device in chip_smoke.agg_requests()
+                    if on_device]
+            out["sets"].append(measure(reader, reqs, "aggs on the card",
+                                       passes=3))
+            out["sets"].append(measure(
+                reader, reqs, "aggs on the host collectors", passes=3,
+                env={"SEARCHLITE_DEVICE_AGGS": "0"}))
+        finally:
+            os.environ["SEARCHLITE_PRECISION"] = precision
+        out["agg_routes"] = dict(reader.agg_routes)
+    if args.vectors:
+        def vec_req(field, row):
+            return {"query": {"type": "vector", "field": field,
+                              "vector": vectors[field][row].tolist(),
+                              "alpha": 0.0}, "limit": 10}
+
+        rows = [17, 4321, 9000, 12345, 15000]
+        out["sets"].append(measure(
+            reader, [vec_req("vec", r) for r in rows],
+            "vector-only (f32 cosine)", passes=3))
+        out["sets"].append(measure(
+            reader, [{"query": "tok57 tok300", "limit": 10,
+                      "filter": {"I64Range": {"field": "bucket", "min": 2,
+                                              "max": 9}},
+                      "vector_query": {"field": "vec", "alpha": 0.5,
+                                       "vector": vectors["vec"][r].tolist()}}
+                     for r in rows], "hybrid alpha 0.5 + filter", passes=3))
+        for field in ("vec_bf16", "vec_int8"):
+            out["sets"].append(measure(
+                reader, [vec_req(field, r % len(vectors[field]))
+                         for r in rows], f"vector-only ({field})", passes=3))
 
 
 if __name__ == "__main__":

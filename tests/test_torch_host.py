@@ -14,7 +14,11 @@ package's writer and opened by each package through its own ``Index``:
 - an index written by either package opens and searches in the other with
   the same results;
 - ``Index.reader()`` of the port gives the port's reader on the card, and
-  raises on a host without CUDA unless the caller asks for the CPU.
+  raises on a host without CUDA unless the caller asks for the CPU;
+- the host aggregation collectors (``query/aggs.py``) give the same
+  intermediates and the same finalized output on seeded matched sets, and
+  the sketches (``query/sketches.py``: t-digest, HyperLogLog, the
+  exact-then-sketch states) the same state, byte for byte.
 """
 
 import numpy as np
@@ -328,7 +332,8 @@ def test_port_index_reader_is_the_port_reader(jax_written):
 # the JAX package's, up to the package name (score_functions.py and
 # script.py differ: their dense evaluators also take a torch namespace)
 VERBATIM = ["models/bm25.py", "query/datetime_util.py", "query/phrase.py",
-            "query/planner.py", "query/sort.py", "index/highlight.py"]
+            "query/planner.py", "query/sort.py", "index/highlight.py",
+            "query/aggs.py", "query/sketches.py"]
 
 
 @pytest.mark.parametrize("rel", VERBATIM)
@@ -342,3 +347,123 @@ def test_copied_host_modules_match_the_jax_package(rel):
         port_src = fh.read()
     assert port_src == jax_src.replace("searchlite_tpu.",
                                        "searchlite_tpu_torch.")
+
+
+# -- host aggregation collectors and sketches ---------------------------------
+
+HOST_AGGS = {
+    "terms_sub": {"type": "terms", "field": "cat", "aggs": {
+        "r": {"type": "stats", "field": "rank"},
+        "top": {"type": "top_hits", "size": 2}}},
+    "terms_numeric_missing": {"type": "terms", "field": "rank",
+                              "missing": 99, "size": 5},
+    "histogram": {"type": "histogram", "field": "rank", "interval": 3,
+                  "offset": 1, "aggs": {
+                      "n": {"type": "value_count", "field": "rank"}}},
+    "date_histogram": {"type": "date_histogram", "field": "rank",
+                       "fixed_interval": "4ms"},
+    "range": {"type": "range", "field": "rank", "ranges": [
+        {"to": 4}, {"from": 4, "to": 12}, {"from": 10}]},
+    "filter": {"type": "filter",
+               "filter": {"KeywordEq": {"field": "cat", "value": "b"}},
+               "aggs": {"r": {"type": "extended_stats", "field": "rank"}}},
+    "stats": {"type": "stats", "field": "rank"},
+    "extended_stats": {"type": "extended_stats", "field": "rank"},
+    "value_count": {"type": "value_count", "field": "cat"},
+    "percentiles": {"type": "percentiles", "field": "rank",
+                    "percents": [5, 50, 99]},
+    "percentile_ranks": {"type": "percentile_ranks", "field": "rank",
+                         "values": [3, 9]},
+    "cardinality": {"type": "cardinality", "field": "rank"},
+    "cardinality_sketch": {"type": "cardinality", "field": "rank",
+                           "precision_threshold": 4},
+    "significant_terms": {"type": "significant_terms", "field": "cat"},
+    "rare_terms": {"type": "rare_terms", "field": "rank",
+                   "max_doc_count": 70},
+    "composite": {"type": "composite", "size": 7, "sources": [
+        {"type": "terms", "name": "c", "field": "cat"},
+        {"type": "histogram", "name": "r", "field": "rank",
+         "interval": 4}]},
+    "sampled": {"type": "terms", "field": "cat",
+                "sampling": {"probability": 0.5, "seed": 3}},
+    "top_hits": {"type": "top_hits", "size": 3,
+                 "sort": [{"field": "rank", "order": "desc"}]},
+    "pipeline": {"type": "sum_bucket", "buckets_path": "histogram>n.value"},
+}
+
+
+def state_of(obj):
+    """A collector state as plain data: dataclasses and sketch objects by
+    their attributes, sets sorted, arrays as (dtype, shape, bytes)."""
+    if isinstance(obj, np.ndarray):
+        return ("array", str(obj.dtype), obj.shape, obj.tobytes())
+    if isinstance(obj, dict):
+        return {repr(k): state_of(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [state_of(v) for v in obj]
+    if isinstance(obj, (set, frozenset)):
+        return sorted(repr(v) for v in obj)
+    if hasattr(obj, "__dict__"):
+        return (type(obj).__name__, state_of(vars(obj)))
+    if hasattr(obj, "__slots__"):
+        return (type(obj).__name__,
+                {k: state_of(getattr(obj, k)) for k in obj.__slots__})
+    return obj
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_agg_collectors_equal(segments, seed):
+    """The same seeded matched sets through both packages' collectors:
+    equal per-segment intermediates (sketch states included, byte for
+    byte) and equal merged, finalized output."""
+    from searchlite_tpu.query.aggs import AggregationPipeline as JaxPipe
+    from searchlite_tpu_torch.query.aggs import AggregationPipeline
+
+    rng = np.random.default_rng(seed)
+    jpipe = JaxPipe(HOST_AGGS, ["w1"], None)
+    ppipe = AggregationPipeline(HOST_AGGS, ["w1"], None)
+    j_inter, p_inter = [], []
+    for so, (jseg, _jd, pseg, _pd) in enumerate(segments):
+        keep = rng.random(jseg.doc_count) < (0.2, 0.6, 1.0)[seed]
+        matched = np.flatnonzero(keep).astype(np.int64)
+        j_inter.append(jpipe.collect_segment(jseg, so, matched))
+        p_inter.append(ppipe.collect_segment(pseg, so, matched.copy()))
+        assert state_of(p_inter[-1]) == state_of(j_inter[-1])
+    j_inter.append(jpipe.empty_intermediate())
+    p_inter.append(ppipe.empty_intermediate())
+    want = jpipe.merge_and_finalize(j_inter)
+    got = ppipe.merge_and_finalize(p_inter)
+    assert got == want
+    assert set(got) == set(HOST_AGGS)
+    assert got["cardinality"]["value"] == 16
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_sketch_states_equal_byte_for_byte(seed):
+    from searchlite_tpu.query import sketches as jax_sk
+    from searchlite_tpu_torch.query import sketches as port_sk
+
+    rng = np.random.default_rng(seed)
+    a = rng.normal(500, 100, 60_000)
+    b = rng.integers(-1000, 1000, 9_000).astype(np.float64)
+    states = []
+    for sk in (jax_sk, port_sk):
+        q1, q2 = sk.QuantileState(), sk.QuantileState()
+        q1.push_values(a)          # past the exact window: a t-digest
+        q2.push_values(b)
+        q1.merge(q2)
+        hll = sk.HllSketch()
+        hll.add_hashes(sk.hash_f64(a))
+        hll.add_hashes(sk.hash_i64(b.astype(np.int64)))
+        card = sk.CardinalityState(precision_threshold=100)
+        card.add_hashes(sk.hash_str_dict([f"k{i}" for i in range(500)]))
+        exact = sk.CardinalityState()
+        exact.add_hashes(sk.hash_i64(np.arange(50)))
+        card.merge(exact)
+        states.append(state_of({
+            "quantile": q1, "hll": hll, "card": card,
+            "answers": [q1.percentile(50.0), q1.percentile_rank(480.0),
+                        hll.estimate(), card.value(),
+                        int(sk.hash_str("abc"))]}))
+        assert not q1.is_exact
+    assert states[0] == states[1]

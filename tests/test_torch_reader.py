@@ -8,8 +8,8 @@ dense route, whose sums run in another order (divergence D10). Ids are
 compared where scores are finite and not near-tied. Also covered: state
 carried from the JAX segment (``from_host_arrays``, bit for bit), rows
 over the strip cap, the JAX reader on the oversized-corpus route,
-coalesced streams, per-query limits, both outputs, and the options the
-port refuses."""
+coalesced streams, per-query limits, both outputs, and the one option the
+port refuses (mesh)."""
 
 import numpy as np
 import pytest
@@ -286,9 +286,10 @@ def test_python_prep_for_queries_native_prep_rejects(index):
 
 
 def test_unported_options_raise(index, monkeypatch):
-    """Mesh execution and search()'s aggregations are not ported; over
-    the dense-M budget, filtered and k > 1024 batches need the
-    doc-sharded scan. search() and batched wand / bmw now answer."""
+    """Mesh execution is the one option left unported. search()'s
+    aggregations answer, and over the dense-M budget filtered and
+    k > 1024 batches take the doc-sharded scan, with the under-budget
+    answers."""
     port = IndexReader(index, device="cpu")
     q = ["w1 w2"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -296,19 +297,25 @@ def test_unported_options_raise(index, monkeypatch):
     for execution in ("wand", "bmw"):
         assert port.search_batch(q, execution=execution) == \
             port.search_batch(q)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.search({"query": "w1", "limit": 5,
-                     "aggs": {"c": {"type": "terms", "field": "cat"}}})
+    agg_req = {"query": "w1", "limit": 5,
+               "aggs": {"c": {"type": "terms", "field": "cat"}}}
+    assert port.search(agg_req).aggregations == \
+        index.reader().search(agg_req).aggregations
     assert port.search({"query": "w1", "limit": 5}).hits
     assert port.search_batch([], limit=5) == []
     assert port.search_batch(q, filters=[None])[0]
-    monkeypatch.setenv("SEARCHLITE_M_BUDGET_BYTES", "1")
-    for kwargs in ({"limit": 1025},
-                   {"filters": [{"I64Range": {"field": "rank",
-                                              "min": 0, "max": 3}}]}):
-        with pytest.raises(NotImplementedError,
-                           match="_search_batch_sharded"):
-            port.search_batch(q, **kwargs)
+    cases = ({"limit": 1025},
+             {"filters": [{"I64Range": {"field": "rank",
+                                        "min": 0, "max": 3}}]})
+    under = [port.search_batch(q, **kwargs) for kwargs in cases]
+    monkeypatch.setenv("SEARCHLITE_M_BUDGET_BYTES", "4096")
+    for kwargs, want in zip(cases, under):
+        got = port.search_batch(q, **kwargs)
+        assert [d for d, _s in got[0]] == [d for d, _s in want[0]]
+        assert np.allclose([s for _d, s in got[0]],
+                           [s for _d, s in want[0]], rtol=RTOL, atol=ATOL)
+        assert len(got[0]) > 5
+    assert port.route_rows["sharded"] > 0
     assert port.search_batch([], limit=5) == []
 
 

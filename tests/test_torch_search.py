@@ -21,7 +21,8 @@ from searchlite_tpu.api.types import IndexOptions as JaxIndexOptions
 from searchlite_tpu.index import Index as JaxIndex
 from searchlite_tpu.index.manifest import Schema as JaxSchema
 from searchlite_tpu_torch.api.types import IndexOptions
-from searchlite_tpu_torch.errors import CursorError
+from searchlite_tpu.errors import QueryError as JaxQueryError
+from searchlite_tpu_torch.errors import CursorError, QueryError
 from searchlite_tpu_torch.index import Index
 from searchlite_tpu_torch.ops.score import topk_by_doc
 
@@ -363,15 +364,26 @@ def test_default_requests_take_the_dense_route(readers):
 
 
 def test_unported_options_raise(readers, monkeypatch):
-    _jreader, treader = readers
-    with pytest.raises(NotImplementedError, match="aggregations"):
-        treader.search({"query": "systems", "limit": 5,
-                        "aggs": {"t": {"type": "terms", "field": "tag"}}})
-    with pytest.raises(NotImplementedError, match="vector"):
-        treader.search({"query": {"type": "bool", "should": [
-            term("body", "rust"),
-            {"type": "vector", "field": "emb", "vector": [1.0, 0.0]}]},
-            "limit": 5})
+    """Mesh execution is the one option left unported. Aggregations and
+    vector clauses answer as the JAX reader does."""
+    jreader, treader = readers
+    agg_req = {"query": "systems", "limit": 5,
+               "aggs": {"t": {"type": "terms", "field": "tag"},
+                        "y": {"type": "value_count", "field": "year"}}}
+    got = treader.search(agg_req)
+    want = jreader.search(agg_req)
+    assert got.aggregations == want.aggregations
+    assert got.aggregations["t"]["buckets"]
+    assert_hits_equal(got.hits, want.hits)
+    vec_req = {"query": {"type": "bool", "should": [
+        term("body", "rust"),
+        {"type": "vector", "field": "emb", "vector": [1.0, 0.0]}]},
+        "limit": 5}
+    # the corpus has no vector field: both readers refuse the clause
+    with pytest.raises(JaxQueryError, match="unknown vector field"):
+        jreader.search(vec_req)
+    with pytest.raises(QueryError, match="unknown vector field"):
+        treader.search(vec_req)
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         treader.search({"query": "systems", "limit": 5}, mesh=object())
     # a segment over the dense-M budget no longer raises: the chunked

@@ -230,3 +230,53 @@ def test_pruned_routes_on_card_match_cpu(monkeypatch):
                            "execution": "bm25"})
     assert card.single_routes["chunked"] == 3
     assert [h.doc_id for h in chunked.hits] == [d for d, _ in dense[0]]
+
+
+# the doc-sharded scan hands the fused kernel N = shard_width + 1: odd for
+# every power-of-two doc axis, so the kernel runs its scalar loads, with a
+# last partial chunk, filter rows of the same odd width, and k up to the
+# shard width
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,q", [(65_537, 2_000, 32), (32_769, 2_000, 32),
+                                   (65_537, 10, 256), (32_769, 1_024, 64)])
+def test_fused_kernel_at_shard_shapes(n, k, q):
+    need_card()
+    rng = np.random.default_rng(n + k)
+    s = 128
+    w = ((rng.random((q, s)) * 3 + 0.5)
+         * (rng.random((q, s)) < 4.0 / s)).astype(np.float32)
+    w[0] = 0.0
+    m = (rng.random((s, n)) * (rng.random((s, n)) < 0.05)).astype(
+        np.float32)
+    deleted = rng.random(n) < 0.05
+    deleted[n - 1] = True
+    rows = rng.random((4, n)) < 0.5
+    rows[0] = True
+    rows[3] = False
+    fidx = rng.integers(0, 3, q).astype(np.int32)
+    fidx[1] = 3
+    args = [torch.from_numpy(x).cuda() for x in (w, m, deleted)]
+    kw = dict(k=k, filter_rows=torch.from_numpy(rows).cuda(),
+              fidx=torch.from_numpy(fidx).cuda())
+    launches = fused_topk.COUNTS.launches
+    got_s, got_i = fused_topk.fused_topk(*args, **kw)
+    assert fused_topk.COUNTS.launches == launches + 1
+    ref_s, ref_i = fused_topk.fused_topk_plain(*args, **kw)
+    got_s, got_i = got_s.cpu().numpy(), got_i.cpu().numpy()
+    ref_s, ref_i = ref_s.cpu().numpy(), ref_i.cpu().numpy()
+    fin = np.isfinite(ref_s)
+    assert np.array_equal(np.isfinite(got_s), fin) and fin.any()
+    assert np.allclose(got_s[fin], ref_s[fin], rtol=RTOL, atol=ATOL)
+    tol = ATOL + RTOL * np.abs(np.where(fin, ref_s, 0.0))
+    gap = np.full(ref_s.shape, np.inf)
+    with np.errstate(invalid="ignore"):
+        diff = np.abs(np.diff(ref_s, axis=1))
+    gap[:, 1:] = np.minimum(gap[:, 1:], diff)
+    gap[:, :-1] = np.minimum(gap[:, :-1], diff)
+    clear = fin & (gap > tol)
+    assert np.array_equal(got_i[clear], ref_i[clear])
+    assert np.isneginf(got_s[0]).all() and np.isneginf(got_s[1]).all()
+    assert (got_i[~fin] == n - 1).all()
+    # no filtered-out or deleted doc comes back
+    ok = rows[fidx][np.arange(q)[:, None], got_i] & ~deleted[got_i]
+    assert ok[fin].all()
