@@ -85,7 +85,19 @@ NVIDIA GPU.
       ``/delete`` + ``/commit`` gone; ``/stats``), ``cli.main`` for
       ``search`` and ``search-batch``, the ``embed`` round trip, and a C
       host linked with ``libsearchlite_tpu_torch.so`` run as a subprocess.
-      The kernels' launch counts must rise under the HTTP requests.
+      The kernels' launch counts must rise under the HTTP requests. Then
+      ``cli.main`` search with ``--mesh 4`` and an HTTP server with
+      ``mesh=4`` (``run_mesh_server``), held to the meshless direct calls.
+   h. the mesh (``run_mesh``, run after e on phase a's reader): 4 logical
+      shards on the card (and a mesh over distinct cards where more than
+      one is visible): the b1024 x3 stream, a b256 with head-term rows,
+      the 9 singles, a structured set, a scroll, vector-only and hybrid,
+      each with ``mesh=`` against the same request without it (the stream
+      against the oracle too); strip launches one a shard of each light
+      tier, fused launches one a shard of each heavy remainder, both
+      kernels held against plain on the first launch's per-shard operands;
+      the terms / stats / range partials against numpy; the mesh and the
+      one-device path timed in turns.
    Every result is checked against ``bench.py``'s f64 oracle under
    ``SEARCHLITE_PRECISION=f32_strict`` (masked by the port's filter where
    there is one; result counts too; the structured set against oracles
@@ -1992,6 +2004,348 @@ def run_vectors(reader, counts, vectors):
 
 
 
+# -- phase h: the mesh -------------------------------------------------------
+
+MESH_SHARDS = 4
+
+
+class ShardCalls:
+    """Records the operands ``parallel/query.py`` hands one kernel wrapper
+    (``sparse_candidate_scorer_packed`` -- the strip kernel -- or
+    ``fused_topk``) over the first ``keep`` calls, and counts every call;
+    each call passes on unchanged."""
+
+    def __init__(self, name: str, keep: int):
+        from searchlite_tpu_torch.parallel import query as query_mod
+
+        self.module = query_mod
+        self.name = name
+        self.real = getattr(query_mod, name)
+        self.keep = keep
+        self.calls = []
+        self.n = 0
+
+    def __enter__(self):
+        def record(*args, **kw):
+            self.n += 1
+            if len(self.calls) < self.keep:
+                self.calls.append((args, kw))
+            return self.real(*args, **kw)
+
+        setattr(self.module, self.name, record)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def check_strip_call(name, args, kw):
+    """One recorded per-shard strip launch against the plain version on the
+    same operands: bit-identical on finite entries, ids and counts equal;
+    then timed beside it, with its bound. Returns the per-shape dict."""
+    import torch
+
+    from searchlite_tpu_torch.ops.sparse import decode_packed
+    from searchlite_tpu_torch.ops.strip_topk import (
+        strip_topk_blocks,
+        strip_topk_blocks_plain,
+    )
+
+    block_docs, block_imps, tid_tbl, packed, ovr, sent = args
+    bstart, bcnt, w = decode_packed(tid_tbl, packed, ovr,
+                                    n_ovr=kw["n_ovr"])
+    op = (block_docs, block_imps, bstart.contiguous(), bcnt.contiguous(),
+          w.contiguous(), sent)
+    skw = dict(k=kw["k"], nblk=kw["nblk"], log2_run=kw["log2_run"])
+    ts, td, cnt = strip_topk_blocks(*op, with_counts=True, **skw)
+    ps, pd, pc = strip_topk_blocks_plain(*op, **skw)
+    torch.cuda.synchronize()
+    ts, td, cnt, ps, pd, pc = (x.cpu().numpy()
+                               for x in (ts, td, cnt, ps, pd, pc))
+    fin = np.isfinite(ps)
+    if not np.array_equal(np.isfinite(ts), fin) \
+            or not np.array_equal(ts[fin].view(np.int32),
+                                  ps[fin].view(np.int32)) \
+            or not np.array_equal(td[fin], pd[fin]) \
+            or not np.array_equal(cnt, pc):
+        raise AssertionError(f"strip_topk {name}: the kernel and the plain "
+                             "version differ")
+    t_kern, t_plain = time_pair(lambda: strip_topk_blocks(*op, **skw),
+                                lambda: strip_topk_blocks_plain(*op, **skw),
+                                20)
+    bstart_np, bcnt_np = bstart.cpu().numpy(), bcnt.cpu().numpy()
+    bms, by = bound_ms(*strip_work(bstart_np, bcnt_np, kw["k"]))
+    row = {"name": name, "rows": int(bstart.shape[0]),
+           "lanes": kw["nblk"] * 128, "k": kw["k"],
+           "block_rows": int(block_docs.shape[0]), "finite": int(fin.sum()),
+           "max_abs_err": float(np.abs(ts[fin] - ps[fin]).max())
+           if fin.any() else 0.0, "ms": t_kern, "plain_ms": t_plain,
+           "bound_ms": bms, "bound_by": by}
+    log(f"strip_topk {name}: [{row['rows']}, {row['lanes']}] over a "
+        f"shard's {row['block_rows']} block rows, k={kw['k']}: "
+        f"bit-identical ({row['finite']} finite, counts equal); kernel "
+        f"{t_kern:.4f} ms, plain {t_plain:.4f} ms, bound {bms:.4f} ms "
+        f"({by}) on {card_line()}")
+    return row
+
+
+def same_arrays(ref, got, what: str) -> float:
+    """Two (scores, ids, segs) results of one stream batch: same_topk over
+    (segment, doc) keys."""
+    rs, ri, rg = ref
+    gs, gi, gg = got
+    if rs.shape != gs.shape:
+        raise AssertionError(f"{what}: shapes {rs.shape} != {gs.shape}")
+    try:
+        return same_topk(rs, rg.astype(np.int64) << 32 | ri,
+                         gs, gg.astype(np.int64) << 32 | gi)
+    except AssertionError as e:
+        raise AssertionError(f"{what}: {e}") from None
+
+
+def same_pairs(ref, got, what: str) -> None:
+    """Two search_batch results (per-query (doc_id, score) lists): the
+    same lengths, scores within the f32_strict tolerance, ids equal away
+    from near-ties."""
+    for qi, (r, g) in enumerate(zip(ref, got)):
+        if len(r) != len(g):
+            raise AssertionError(f"{what} q{qi}: {len(g)} hits, want "
+                                 f"{len(r)}")
+        want = dict(r)
+        for (gd, gsc), (rd, rsc) in zip(g, r):
+            tol = ATOL + RTOL * abs(rsc)
+            if abs(gsc - rsc) > tol or (gd != rd and (
+                    gd not in want or abs(want[gd] - rsc) > tol)):
+                raise AssertionError(f"{what} q{qi}: ({gd}, {gsc}), want "
+                                     f"({rd}, {rsc})")
+
+
+def structured_requests():
+    """Phase c's structured set as plain requests (each held against the
+    meshless answer, which phase c held to its oracle)."""
+    return {
+        "bool + filter": {"query": {
+            "type": "bool",
+            "must": [{"type": "term", "field": "body", "value": "tok57"}],
+            "must_not": [{"type": "term", "field": "body",
+                          "value": "tok12"}],
+            "filter": [{"I64Range": {"field": "bucket", "min": 2,
+                                     "max": 9}}]}, "limit": K},
+        "phrase": {"query": {"type": "phrase", "field": "body",
+                             "terms": ["tok40", "tok41"]}, "limit": K},
+        "function_score": {"query": {
+            "type": "function_score",
+            "query": {"type": "term", "field": "body", "value": "tok33"},
+            "functions": [{"type": "field_value_factor", "field": "bucket",
+                           "factor": 0.5, "modifier": "log1p"}],
+            "boost_mode": "multiply"}, "limit": K},
+        "terms agg": {"query": "tok5 tok9 tok40", "limit": K,
+                      "aggs": {"t": {"type": "terms", "field": "cat",
+                                     "size": 20}}},
+        "collapse": {"query": "tok5 tok9", "limit": K,
+                     "collapse": {"field": "cat"}},
+    }
+
+
+def run_mesh(reader, counts, vectors, mesh):
+    """Phase h: the mesh, ``MESH_SHARDS`` logical shards on the card (or a
+    mesh over distinct cards). Every request against the same request
+    without the mesh on the same card (and the stream against the f64
+    oracle); strip launches = shards x light launches, fused launches =
+    shards x heavy launches; each kernel held against its plain version on
+    the first launch's per-shard operands; the mesh and the one-device
+    path timed in turns. Returns (launches, strip rows, fused rows)."""
+    import torch
+
+    import bench
+    from searchlite_tpu_torch.parallel.query import (
+        make_sharded_range_counts,
+        make_sharded_stats_partial,
+        make_sharded_terms_counts,
+        pad_doc_axis,
+    )
+    from searchlite_tpu_torch.ops.vector import vector_topk_sharded
+
+    d = mesh.shape["shard"]
+    tag = f"mesh[{d} on {','.join(sorted(set(mesh.key)))}]"
+    batches = bench.build_queries()
+    stream = batches[1:]
+    b256 = stream[0][:240] + split_queries(seed=21)
+    singles = [{"query": q, "limit": K} for q in batches[0][:9]]
+    struct = structured_requests()
+    seg = reader.segments[0]
+    n = seg.doc_count
+
+    def sync(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1000
+
+    # the meshless answers on the same card, and a warm pass of each
+    ref_stream = reader.search_batch_many(stream, limit=K, output="arrays")
+    ref_b256 = reader.search_batch(b256, limit=K)
+    ref_singles = [reader.search(dict(r)) for r in singles]
+    ref_struct = {k: reader.search(dict(r)) for k, r in struct.items()}
+    scroll_req = {"query": "tok333 tok444", "limit": 50,
+                  "sort": [{"field": "bucket", "order": "asc"}]}
+    ref_scroll = reader.search_scroll(dict(scroll_req), block_docs=2000)
+    q = vectors["vec"][1234] + 0.05 * np.random.default_rng(31).normal(
+        size=VEC_DIM).astype(np.float32)
+    vec_reqs = {
+        "vector-only": {"query": {"type": "vector", "field": "vec",
+                                  "vector": q.tolist(), "alpha": 0.0},
+                        "limit": K},
+        "hybrid": {"query": "tok57 tok300", "limit": K,
+                   "filter": {"I64Range": {"field": "bucket", "min": 2,
+                                           "max": 9}},
+                   "vector_query": {"field": "vec", "vector": q.tolist(),
+                                    "alpha": 0.5}}}
+    ref_vec = {k: reader.search(dict(r)) for k, r in vec_reqs.items()}
+    reader.search_batch_many(stream, limit=K, output="arrays", mesh=mesh)
+    reader.search_batch(b256, limit=K, mesh=mesh)
+    for r in singles:
+        reader.search(dict(r), mesh=mesh)
+
+    # the main path, counted
+    before_rows = dict(reader.route_rows)
+    before_single = reader.single_routes["mesh"]
+    counts.reset()
+    with ShardCalls("sparse_candidate_scorer_packed", d) as strips, \
+            ShardCalls("fused_topk", d) as fused:
+        got_stream, _ = sync(lambda: reader.search_batch_many(
+            stream, limit=K, output="arrays", mesh=mesh))
+        got_b256 = reader.search_batch(b256, limit=K, mesh=mesh)
+        got_singles = [reader.search(dict(r), mesh=mesh) for r in singles]
+        got_struct = {k: reader.search(dict(r), mesh=mesh)
+                      for k, r in struct.items()}
+        got_scroll = reader.search_scroll(dict(scroll_req), block_docs=2000,
+                                          mesh=mesh)
+        got_vec = {k: reader.search(dict(r), mesh=mesh)
+                   for k, r in vec_reqs.items()}
+        torch.cuda.synchronize()
+    launches, plain = counts.read()
+    rows = {k: reader.route_rows[k] - before_rows[k] for k in before_rows}
+    n_seg = reader.single_routes["mesh"] - before_single
+    log(f"{tag}: launches {launches}, plain calls {plain}; strip "
+        f"wrapper calls {strips.n}, fused calls {fused.n}; batch rows per "
+        f"route {rows}; {n_seg} single-query segments on the mesh")
+    if plain != 0:
+        raise AssertionError(f"{tag}: a plain version ran on the card")
+    if launches["strip_topk"] != strips.n or strips.n == 0 \
+            or strips.n % d:
+        raise AssertionError(f"{tag}: {launches['strip_topk']} strip "
+                             f"launches for {strips.n} shard calls")
+    if launches["fused_topk"] != fused.n or fused.n == 0 or fused.n % d:
+        raise AssertionError(f"{tag}: {launches['fused_topk']} fused "
+                             f"launches for {fused.n} shard calls")
+    if not rows["mesh_strip"] or not rows["mesh_dense"] \
+            or rows["dense"] or rows["sharded"] or rows["strip"]:
+        raise AssertionError(f"{tag}: batch rows per route {rows}")
+
+    # every answer against the meshless one (and the stream's first batch
+    # against the oracle)
+    err = 0.0
+    for i, (r, g) in enumerate(zip(ref_stream, got_stream)):
+        err = max(err, same_arrays(r, g, f"{tag} stream batch {i}"))
+    if not bench.verify_vs_oracle(reader, stream[0], materialize(
+            reader, got_stream[0], len(stream[0]))):
+        raise AssertionError(f"{tag}: the stream disagrees with the oracle")
+    same_pairs(ref_b256, got_b256, f"{tag} b256")
+    verify_masked(reader, b256, [None] * len(b256), got_b256, K)
+    for r, want, got in zip(singles, ref_singles, got_singles):
+        same_hits(got, want, f"{tag} single {r['query']!r}")
+    for name in struct:
+        same_hits(got_struct[name], ref_struct[name], f"{tag} {name}")
+        if got_struct[name].aggregations != ref_struct[name].aggregations \
+                or got_struct[name].total_groups \
+                != ref_struct[name].total_groups:
+            raise AssertionError(f"{tag} {name}: aggregations or groups "
+                                 "differ")
+    if [h.doc_id for p in got_scroll for h in p.hits] != \
+            [h.doc_id for p in ref_scroll for h in p.hits]:
+        raise AssertionError(f"{tag}: the scroll differs")
+    for name in vec_reqs:
+        same_hits(got_vec[name], ref_vec[name], f"{tag} {name}")
+    log(f"{tag}: the b1024 x3 stream (oracle-verified, f32_strict; max abs "
+        f"err {err:.3g} against the meshless arrays), a b256 batch with "
+        f"head-term rows ({rows['mesh_strip']} strip rows, "
+        f"{rows['mesh_dense']} dense rows over every batch), the 9 "
+        f"singles, {len(struct)} structured requests, a scroll of "
+        f"{sum(len(p.hits) for p in got_scroll)} hits, vector-only and "
+        "hybrid: equal to the meshless answers on the same card")
+
+    # the three partials against numpy, on the mesh
+    cats = np.asarray([doc_cat(i) for i in range(n)], dtype=np.int32)
+    bucket = (np.arange(n) % 16).astype(np.float32)
+    matched = bench._oracle_scores(reader, "tok5 tok9 tok40") > 0
+    n1p = -(-n // d) * d
+    codes = pad_doc_axis(cats, n1p, -1)
+    mask = pad_doc_axis(matched, n1p, False)
+    tc = make_sharded_terms_counts(mesh)(codes, mask, n_buckets=N_CATS)
+    stats = make_sharded_stats_partial(mesh)(
+        pad_doc_axis(bucket, n1p, 0.0), pad_doc_axis(
+            np.ones(n, dtype=bool), n1p, False), mask)
+    range_rows = np.stack([bucket < 4, (bucket >= 4) & (bucket < 12),
+                           bucket >= 12])
+    rc = make_sharded_range_counts(mesh)(pad_doc_axis(range_rows, n1p,
+                                                      False), mask)
+    sel = bucket[matched].astype(np.float64)
+    if not np.array_equal(tc.cpu().numpy(), np.bincount(
+            cats[matched], minlength=N_CATS)) \
+            or int(stats[0]) != len(sel) or float(stats[1]) != sel.sum() \
+            or float(stats[2]) != (sel ** 2).sum() \
+            or float(stats[3]) != sel.min() or float(stats[4]) != sel.max() \
+            or not np.array_equal(rc.cpu().numpy(),
+                                  (range_rows & matched).sum(axis=1)):
+        raise AssertionError(f"{tag}: an aggregation partial differs from "
+                             "numpy")
+    vs = vector_topk_sharded(seg.vectors["vec"], np.ones(n, dtype=bool),
+                             q[None, :], K, "cosine", mesh)
+    if vs[1][0, 0] != 1234:
+        raise AssertionError(f"{tag}: vector_topk_sharded missed the doc")
+    log(f"{tag}: terms / stats / range partials over {int(matched.sum())} "
+        "matched docs equal numpy (counts exact, sums f64)")
+
+    # each kernel against plain on the first launch's per-shard operands
+    # (after the counts were read: these launches do not count)
+    # (on each shard's card: the events time and the syncs wait there)
+    strip_rows, fused_rows = [], []
+    for i, (a, kw) in enumerate(strips.calls):
+        with torch.cuda.device(a[0].device):
+            strip_rows.append(check_strip_call(f"{tag} shard {i}", a, kw))
+    for i, (a, kw) in enumerate(fused.calls):
+        kw = dict(kw)
+        k = kw.pop("k")
+        with torch.cuda.device(a[0].device):
+            fused_rows.append(check_fused_call(
+                f"{tag} shard {i}", *a, k,
+                {key: v for key, v in kw.items() if v is not None}))
+    del strips, fused
+
+    # the mesh and the meshless path, timed in turns
+    times = {"mesh": {"stream": [], "singles": []},
+             "one device": {"stream": [], "singles": []}}
+    for which in ("one device", "mesh", "mesh", "one device"):
+        kw = {"mesh": mesh} if which == "mesh" else {}
+        _out, ms = sync(lambda: reader.search_batch_many(
+            stream, limit=K, output="arrays", **kw))
+        times[which]["stream"].append(ms)
+        lat = [sync(lambda: reader.search(dict(r), **kw))[1]
+               for r in singles]
+        times[which]["singles"].append(p50(lat))
+    n_q = sum(len(b) for b in stream)
+    for which, t in times.items():
+        log(f"{tag} timing, {which}: b1024 x3 stream "
+            f"{[round(x, 2) for x in t['stream']]} ms "
+            f"({n_q / (np.mean(t['stream']) / 1000):.1f} QPS), singles p50 "
+            f"{[round(x, 3) for x in t['singles']]} ms on {card_line()} "
+            "(in turns one device, mesh, mesh, one device; information, "
+            "not a benchmark)")
+    return launches, strip_rows, fused_rows
+
+
 # -- phase f: a live index ---------------------------------------------------
 
 N_DELETE = 1000
@@ -2514,6 +2868,50 @@ def run_c_host() -> None:
         "error values, close) exited 0 on the card")
 
 
+def run_mesh_server(counts, direct, queries, batch_q):
+    """Phase g's mesh: an HTTP server with ``mesh=MESH_SHARDS`` answers
+    /search and /search_batch as the direct meshless calls. Returns
+    launches."""
+    from searchlite_tpu_torch import http_server
+
+    server = http_server.make_server(INDEX_DIR, bind="127.0.0.1:0",
+                                     mesh=MESH_SHARDS)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    host, port = server.server_address
+    base = f"http://{host}:{port}"
+    try:
+        counts.reset()
+        for q in queries[:8]:
+            body = http_call(base, "POST", "/search", {"query": q,
+                                                      "limit": K})
+            want = direct.search({"query": q, "limit": K}).to_json()
+            same_hit_json(body["hits"], want["hits"], f"mesh /search {q}")
+            if body["total_hits_estimate"] != want["total_hits_estimate"]:
+                raise AssertionError(f"mesh /search {q}: count differs")
+        body = http_call(base, "POST", "/search_batch",
+                         {"queries": batch_q, "limit": K})
+        launches, _plain = counts.read()
+        for row, want in zip(body["results"],
+                             direct.search_batch(batch_q, limit=K)):
+            same_hit_json(row, [{"doc_id": d, "score": sc}
+                                for d, sc in want], "mesh /search_batch")
+        mesh = server.RequestHandlerClass.state.mesh
+        if mesh is None or mesh.shape["shard"] != MESH_SHARDS \
+                or launches["strip_topk"] % MESH_SHARDS \
+                or not launches["strip_topk"]:
+            raise AssertionError(f"the mesh server: mesh {mesh}, launches "
+                                 f"{launches}")
+        log(f"HTTP with mesh={MESH_SHARDS} ({mesh}): 8 /search and a "
+            f"/search_batch of {len(batch_q)} equal the direct meshless "
+            f"calls; launches {launches}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    return launches
+
+
 def run_surfaces(counts):
     """Phase g. Returns launches."""
     import torch
@@ -2638,6 +3036,17 @@ def run_surfaces(counts):
         for row, want_row in zip(got_rows, want_rows):
             same_hit_json(row, [{"doc_id": d, "score": sc}
                                 for d, sc in want_row], "cli search-batch")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["search", INDEX_DIR, "-q", queries[0],
+                           "--limit", str(K), "--mesh", str(MESH_SHARDS)])
+        got = json.loads(out.getvalue())
+        want = direct.search({"query": queries[0], "limit": K,
+                              "execution": "wand"}).to_json()
+        if rc != 0 or got["total_hits_estimate"] \
+                != want["total_hits_estimate"]:
+            raise AssertionError(f"cli search --mesh exited {rc}")
+        same_hit_json(got["hits"], want["hits"], "cli search --mesh")
         handle = embed.searchlite_index_open(INDEX_DIR,
                                              create_if_missing=False)
         if handle == 0:
@@ -2662,8 +3071,12 @@ def run_surfaces(counts):
             raise AssertionError("the CLI and embed launched no kernel")
         for key in launches:
             launches[key] += cli_launches[key]
-        log(f"CLI search and search-batch, and the embed round trip, equal "
-            f"the direct calls; launches {cli_launches}")
+        log(f"CLI search and search-batch (and search --mesh "
+            f"{MESH_SHARDS}), and the embed round trip, equal the direct "
+            f"calls; launches {cli_launches}")
+        mesh_launches = run_mesh_server(counts, direct, queries, batch_q)
+        for key in launches:
+            launches[key] += mesh_launches[key]
         torch.cuda.synchronize()
     finally:
         server.shutdown()
@@ -2745,6 +3158,20 @@ def main() -> int:
     fused_rows += shard_rows
     agg_launches = run_aggs(reader, counts)
     vector_launches = run_vectors(reader, counts, vectors)
+    from searchlite_tpu_torch.parallel.mesh import make_mesh
+
+    meshes = [make_mesh(MESH_SHARDS,
+                        devices=[torch.device("cuda", 0)] * MESH_SHARDS)]
+    if torch.cuda.device_count() > 1:
+        meshes.append(make_mesh())  # distinct cards
+    mesh_launches = {"strip_topk": 0, "strip_lanes": 0, "fused_topk": 0}
+    for mesh in meshes:
+        launches_h, mesh_strip_rows, mesh_fused_rows = run_mesh(
+            reader, counts, vectors, mesh)
+        for key in mesh_launches:
+            mesh_launches[key] += launches_h[key]
+        strip_rows += mesh_strip_rows
+        fused_rows += mesh_fused_rows
     del vectors
     live_launches, clone_strip_rows, clone_fused_rows = run_live_index(
         index, reader, counts,
@@ -2759,8 +3186,8 @@ def main() -> int:
                        + sparse_launches[k] + pruned_launches[k]
                        + chunked_launches[k] + wand_launches[k]
                        + sharded_launches[k] + agg_launches[k]
-                       + vector_launches[k] + live_launches[k]
-                       + surface_launches[k]
+                       + vector_launches[k] + mesh_launches[k]
+                       + live_launches[k] + surface_launches[k]
                        for k in single_launches}
     for blocked in ("jax", "searchlite_tpu"):
         if sys.modules.get(blocked) is not None:

@@ -57,13 +57,20 @@ mask with it, searches the vectors of the docs that mask and the filters
 admit, and blends the two scores per candidate
 (``compute_hybrid_score``).
 
-Requests with ``mesh`` raise ``NotImplementedError`` naming their ROADMAP
-item.
+**A mesh** (``mesh=``, a ``parallel/mesh.py::Mesh``) runs every segment
+doc-sharded over the mesh's devices (``parallel/query.py``): per shard,
+``build_m`` over the shard's own postings and the same compiled core; the
+top-k lists merge shard-major on the mesh's first device and the match
+count sums. A plain score-desc top-k takes the merged list; every other
+request (cursors, field sort, collapse, aggregations, vectors) takes the
+general host path over the reassembled masks. Vector clauses shard their
+rows (``ops/vector.py::vector_topk_sharded``). ``single_routes["mesh"]``
+counts the segments.
 
 ``single_routes`` counts segments per single-query route: ``dense``,
 ``sparse_plain``, ``sparse_split``, ``split_fallthrough`` (a split whose
-certificate failed; the segment then ran another route too), ``pruned``
-and ``chunked``. ``tile_stats`` counts the tile routes' work: UB
+certificate failed; the segment then ran another route too), ``pruned``,
+``chunked`` and ``mesh``. ``tile_stats`` counts the tile routes' work: UB
 launches, exact-scoring wave launches, tiles scored, per-query rounds.
 
 **Batches** (``search_batch_many``) with ``execution="bm25"`` are routed
@@ -109,9 +116,18 @@ docs, auto mode treats wand / bmw as hints and runs the bm25 routes.
 ``fallback``, ``tiles`` (rows scored in tile waves) and ``sharded`` (rows
 through the doc-sharded scan).
 
+**Batches over a mesh** (``search_batch_many(mesh=)``, unfiltered; a
+filtered batch keeps the one-device routes) run per segment on the mesh
+tables (``DeviceSegment.mesh_sparse_tables``): rows whose WORST shard
+holds at most ``SEARCHLITE_SPARSE_MAX_BLOCKS`` (32) blocks ride the strip
+kernel once a shard, in pow-4 tiers (``route_rows["mesh_strip"]``); the
+rest take M over each shard's blocks and the fused kernel once a shard
+(``route_rows["mesh_dense"]``), or, with ``SEARCHLITE_MESH_DENSE=0`` or
+past int32 indexing, the one-device dense scorers. Every launch is
+enqueued before the one copy back a device.
+
 Every route is exact, so results match the JAX reader whichever route it
-took (scores to f32 reassociation, divergence D10). ``mesh`` is not ported
-yet and raises ``NotImplementedError``.
+took (scores to f32 reassociation, divergence D10).
 """
 
 from __future__ import annotations
@@ -152,7 +168,13 @@ from searchlite_tpu_torch.ops.device_aggs import (
     strict as precision_strict,
 )
 from searchlite_tpu_torch.ops.score import CompiledQuery
-from searchlite_tpu_torch.ops.vector import vector_topk
+from searchlite_tpu_torch.ops.vector import vector_topk, vector_topk_sharded
+from searchlite_tpu_torch.parallel.query import (
+    make_sharded_batch_scorer,
+    make_sharded_dense_batch_scorer,
+    make_sharded_query_executor,
+    pad_doc_axis,
+)
 from searchlite_tpu_torch.query.aggs import (
     AggregationPipeline,
     validate_aggregations,
@@ -169,15 +191,20 @@ from searchlite_tpu_torch.ops.impact import (
     csr_take_rows,
     ensure_dense_tables,
     next_pow2,
+    pow2_bucket,
+    pow4_bucket,
     pow15_bucket,
     split_impact_batch,
     subset_impact_batch,
 )
 from searchlite_tpu_torch.ops.sparse import (
     STRIP_CHUNK_ELEMS,
+    _emit_packed_rows,
+    _packed_applies,
     partition_sparse_batch,
     partition_sparse_batch_split,
     partition_sparse_batch_tiered,
+    tier_bounds,
 )
 from searchlite_tpu_torch.query.filters import (
     compute_filters_mask,
@@ -194,7 +221,6 @@ from searchlite_tpu_torch.ops.impact import (
 from searchlite_tpu_torch.ops.tiles import (
     gather_cols,
     get_tile_index,
-    pow4_bucket,
     pq_run_scorer,
     run_batch_scorer,
     seed_select,
@@ -238,12 +264,6 @@ DEFAULT_EF_SEARCH = 40
 # by plan structure + schema fingerprint (JAX ``_GLOBAL_COMPILED``)
 _GLOBAL_COMPILED: dict[str, CompiledQuery] = {}
 _GLOBAL_LOCK = threading.Lock()
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to searchlite_tpu_torch yet "
-        f"(ROADMAP.md queue 1: {item})")
 
 
 @dataclass
@@ -472,7 +492,8 @@ class IndexReader:
     ``dense``: rows through the dense scorers, fallback waves included,
     ``fallback``: unsound term-split rows re-scored dense, ``tiles``: rows
     scored in doc-tile waves, ``sharded``: rows through the doc-sharded
-    dense scan)."""
+    dense scan, ``mesh_strip`` / ``mesh_dense``: a mesh batch's rows on the
+    shards' strips / the shards' dense scorer)."""
 
     def __init__(self, index, device=None):
         self.device = torch.device(index.device if device is None
@@ -520,10 +541,11 @@ class IndexReader:
         self._token_cache: dict = {}
         self._split_fallback_rows = 0
         self.route_rows = {"strip": 0, "split": 0, "dense": 0,
-                           "fallback": 0, "tiles": 0, "sharded": 0}
+                           "fallback": 0, "tiles": 0, "sharded": 0,
+                           "mesh_strip": 0, "mesh_dense": 0}
         self.single_routes = {"dense": 0, "sparse_plain": 0,
                               "sparse_split": 0, "split_fallthrough": 0,
-                              "pruned": 0, "chunked": 0}
+                              "pruned": 0, "chunked": 0, "mesh": 0}
         self.tile_stats = {"ub_launches": 0, "wave_launches": 0,
                            "tiles_scored": 0, "rounds": 0}
         # segments whose aggregations reduced on the device / were
@@ -907,8 +929,10 @@ class IndexReader:
 
     def search(self, req, mesh=None) -> SearchResult:
         """Execute one search request (a :class:`SearchRequest` or its
-        JSON dict) over every segment; see the module docstring for the
-        routes."""
+        JSON dict) over every segment; with ``mesh`` (a
+        ``parallel/mesh.py::Mesh``) every segment runs doc-sharded over the
+        mesh's devices, with the one-device results. See the module
+        docstring for the routes."""
         if isinstance(req, dict):
             req = SearchRequest.from_json(req)
         if req.limit <= 0:
@@ -920,8 +944,6 @@ class IndexReader:
             ensure_keyword_fast(self.schema, req.collapse.field, "collapse")
         if req.filter is not None:
             validate_filter(self.schema, req.filter)
-        if mesh is not None:
-            raise _not_ported("mesh execution", "multi-GPU")
 
         sort_plan = SortPlan.from_request(self.schema, req.sort)
         score_fast_path = (sort_plan.is_score_only()
@@ -942,7 +964,7 @@ class IndexReader:
             vector_plan = None
         if vector_plan is not None and vector_plan.vector_only:
             return self._search_vector_only(req, sort_plan, cursor_state,
-                                            vector_plan)
+                                            vector_plan, mesh=mesh)
 
         base_candidate = min(
             max(req.candidate_size or req.limit, req.limit),
@@ -994,6 +1016,7 @@ class IndexReader:
         agg_dev_candidate = (agg_pipeline is not None
                              and not needs_mask_base
                              and vector_plan is None
+                             and mesh is None
                              and os.environ.get(
                                  "SEARCHLITE_DEVICE_AGGS", "1") != "0")
         needs_mask_host = needs_mask_base or agg_pipeline is not None
@@ -1054,6 +1077,22 @@ class IndexReader:
             fetch.extend(agg_refs)  # the device partials come LAST
             return (dseg, qargs, fetch)
 
+        def segment_masks(seg, dseg):
+            """The executor's doc-axis inputs: phrase masks, filter masks,
+            column values and presence, the root mask."""
+            root_mask = np.ones(dseg.n1, dtype=bool)
+            if req.filter is not None:
+                root_mask[:seg.doc_count] = compute_filters_mask(
+                    seg.fast, [req.filter])
+                root_mask[seg.doc_count:] = False
+            return (self._segment_phrase_masks(seg, plan.phrase_specs,
+                                               n1=dseg.n1),
+                    self._segment_filter_masks(seg, compiled.filter_slots,
+                                               n1=dseg.n1),
+                    *self._segment_columns(seg, compiled.columns,
+                                           n1=dseg.n1),
+                    root_mask)
+
         def run_chunked(dseg, qargs, masks):
             qargs["_chunked_pre"] = self._run_segment_chunked(
                 dseg, compiled, qargs, *masks, has_scored, need_scores,
@@ -1071,6 +1110,22 @@ class IndexReader:
                 dseg, qualified, group_keys, compiled.n_leaves,
                 compiled.n_groups)
             k = min(max(top_k, 1), dseg.n1)
+            if mesh is not None:
+                ts, ti, mc, fm, adj, tm = self._search_segment_sharded(
+                    mesh, dseg, compiled, qargs, segment_masks(seg, dseg), k,
+                    has_scored, need_scores)
+                self.single_routes["mesh"] += 1
+                if score_fast_path and cursor_state is None \
+                        and agg_pipeline is None and req.collapse is None \
+                        and vector_plan is None:
+                    # the merged top-k feeds the fast path
+                    qargs["_pruned_pre"] = (ts, ti, mc,
+                                            qargs["postings_touched"])
+                else:
+                    # the general host path over the reassembled masks
+                    qargs["_chunked_pre"] = (fm, adj, tm)
+                pending.append((dseg, qargs, []))
+                continue
             # the sparse single route goes first: where it applies it is
             # one dispatch and one fetch; on a certificate fall-through
             # the tile path or the dense executor still runs
@@ -1082,19 +1137,7 @@ class IndexReader:
                     continue
             oversize = (qargs["overflow"]
                         or qargs["s_pad"] * dseg.n1 * 4 > m_budget)
-            phrase_masks = self._segment_phrase_masks(
-                seg, plan.phrase_specs, n1=dseg.n1)
-            filter_masks = self._segment_filter_masks(
-                seg, compiled.filter_slots, n1=dseg.n1)
-            col_vals, col_has = self._segment_columns(
-                seg, compiled.columns, n1=dseg.n1)
-            root_mask = np.ones(dseg.n1, dtype=bool)
-            if req.filter is not None:
-                root_mask[:seg.doc_count] = compute_filters_mask(
-                    seg.fast, [req.filter])
-                root_mask[seg.doc_count:] = False
-            masks = (phrase_masks, filter_masks, col_vals, col_has,
-                     root_mask)
+            masks = segment_masks(seg, dseg)
             if pruning_ok and qargs["n_slots"] > 0 and not dseg.tiered \
                     and (oversize
                          or qargs["postings_touched"] >= prune_min):
@@ -1269,7 +1312,7 @@ class IndexReader:
 
         if vector_plan is not None:
             vector_scores = self._collect_vector_maps(vector_plan, req,
-                                                      text_masks)
+                                                      text_masks, mesh=mesh)
             saw = [saw_cursor]
             all_hits = self._merge_vector_hits(
                 all_hits, vector_scores, vector_plan, sort_plan,
@@ -1488,12 +1531,12 @@ class IndexReader:
                           vector_only=vector_only)
 
     def _collect_vector_maps(self, plan: VectorPlan, req,
-                             text_masks: Optional[dict[int, np.ndarray]]
-                             ) -> list[dict]:
+                             text_masks: Optional[dict[int, np.ndarray]],
+                             mesh=None) -> list[dict]:
         """Per-clause {(segment_ord, doc): boosted similarity} maps: exact
-        brute force (``ops/vector.py::vector_topk``) over each segment's
-        live docs passing the request's filters (and, for a hybrid
-        request, the text matcher's mask)."""
+        brute force (``ops/vector.py::vector_topk``, or over a mesh its
+        sharded form) over each segment's live docs passing the request's
+        filters (and, for a hybrid request, the text matcher's mask)."""
         per_clause: list[dict] = [dict() for _ in plan.clauses]
         for dseg in self.device_segments:
             seg = dseg.reader
@@ -1522,9 +1565,14 @@ class IndexReader:
                 query = np.asarray([clause.vector], dtype=np.float32)
                 vf = self.schema.vector_field(clause.field)
                 quant = vf.quantization if vf else None
-                scores, ids = vector_topk(
-                    vdata, base_mask, query, search_k, clause.metric,
-                    quantization=quant, device=dseg.device)
+                if mesh is not None:
+                    scores, ids = vector_topk_sharded(
+                        vdata, base_mask, query, search_k, clause.metric,
+                        mesh, quantization=quant)
+                else:
+                    scores, ids = vector_topk(
+                        vdata, base_mask, query, search_k, clause.metric,
+                        quantization=quant, device=dseg.device)
                 for score, doc in zip(scores[0].tolist(), ids[0].tolist()):
                     if score == -np.inf:
                         continue
@@ -1578,7 +1626,7 @@ class IndexReader:
         return merged
 
     def _search_vector_only(self, req, sort_plan: SortPlan, cursor_state,
-                            plan: VectorPlan) -> SearchResult:
+                            plan: VectorPlan, mesh=None) -> SearchResult:
         """A request whose query tree holds only vector clauses: the
         clauses' hits are the match set; aggregations collect on the host
         over them."""
@@ -1589,7 +1637,8 @@ class IndexReader:
         validate_aggregations(self.schema, req.aggs)
         agg_pipeline = (AggregationPipeline(req.aggs, [], self.schema)
                         if req.aggs else None)
-        vector_scores = self._collect_vector_maps(plan, req, None)
+        vector_scores = self._collect_vector_maps(plan, req, None,
+                                                  mesh=mesh)
 
         saw_cursor = [cursor_state is None or not req.return_hits]
         total_matches = 0
@@ -1698,6 +1747,69 @@ class IndexReader:
             up(col_vals), up(col_has), up(root_mask), cs, eq_mode, cdoc,
             k=k, s_pad=qargs["s_pad"], has_scored_terms=has_scored,
             need_scores=need_scores, use_cursor=use_cursor)
+
+    def _search_segment_sharded(self, mesh, dseg, compiled, qargs, masks,
+                                k: int, has_scored: bool, need_scores: bool):
+        """One segment's full query doc-sharded over ``mesh`` (JAX
+        ``_search_segment_sharded``): the doc-sharded postings
+        (``doc_shards``) sliced per shard at a uniform pow-4 ``per`` and
+        cached on the shards dict per mesh, per-shard slot tables into
+        them, the doc-axis inputs padded to ``n1p`` (``deleted`` padded
+        True), ``parallel/query.py::make_sharded_query_executor``, one copy
+        back. Returns (top_scores, top_idx, match_count, final_mask,
+        adjusted, text_mask) numpy, the masks cut to the segment's n1."""
+        devs = mesh.shard_devices
+        n_shards = len(devs)
+        shards = dseg.doc_shards(n_shards)
+        width = shards["shard_width"]
+        n1p = width * n_shards
+        n_terms = shards["n_terms"]
+        counts = shards["counts"]
+        base = shards["posting_base"]
+        shard_lo = base[np.arange(n_shards) * n_terms]
+        shard_hi = base[(np.arange(n_shards) + 1) * n_terms]
+        # per-shard posting slices: segment-static, built and uploaded
+        # once per (segment, mesh)
+        per = pow4_bucket(int((shard_hi - shard_lo).max()), minimum=1024)
+        key = ("padded_local", mesh.key)
+        cached = shards.get(key)
+        if cached is None or cached[0] != per:
+            docs_l, imps_l = [], []
+            for d, dev in enumerate(devs):
+                lo, hi = int(shard_lo[d]), int(shard_hi[d])
+                docs = np.zeros(per, dtype=np.int32)
+                imps = np.zeros(per, dtype=np.float32)
+                docs[:hi - lo] = shards["docs_sh_np"][lo:hi]
+                imps[:hi - lo] = shards["imps_sh_np"][lo:hi]
+                docs_l.append(torch.from_numpy(docs).to(dev))
+                imps_l.append(torch.from_numpy(imps).to(dev))
+            cached = shards[key] = (per, docs_l, imps_l)
+        # per-shard slot tables of this query's slots
+        n_slots = qargs["n_slots"]
+        tids = qargs["slot_tids"][:n_slots]
+        s_pad = qargs["s_pad"]
+        slot_start2 = np.zeros((n_shards, s_pad), dtype=np.int32)
+        slot_len2 = np.zeros((n_shards, s_pad), dtype=np.int32)
+        if n_slots:
+            for d in range(n_shards):
+                keys = d * n_terms + tids
+                slot_start2[d, :n_slots] = base[keys] - shard_lo[d]
+                slot_len2[d, :n_slots] = counts[keys]
+        p_pad = pow4_bucket(max(int(slot_len2.sum(axis=1).max()), 1),
+                            minimum=1024)
+        deleted = pad_doc_axis(dseg.host.deleted_np, n1p, True)
+        padded = [pad_doc_axis(x, n1p, fill)
+                  for x, fill in zip(masks, MASK_FILLS)]
+        run = make_sharded_query_executor(mesh, compiled, width)
+        out = run(cached[1], cached[2], deleted, slot_start2, slot_len2,
+                  *(qargs[key] for key in WEIGHT_KEYS), *padded,
+                  k=min(k, n1p), p_pad=p_pad, has_scored_terms=has_scored,
+                  need_scores=need_scores)
+        ts, ti, mc, fm, adj, tm = _fetch(list(out))
+        n1 = dseg.n1
+        # copies: the general result path mutates the mask (cursor skip)
+        return (ts, ti, int(mc), np.array(fm[:n1]), np.array(adj[:n1]),
+                np.array(tm[:n1]))
 
     # -- doc-tile pruned single queries (ops/tiles.py) ------------------------
 
@@ -2607,16 +2719,23 @@ class IndexReader:
             raise QueryError(f"unknown execution strategy `{execution}`")
         if output not in ("pairs", "arrays"):
             raise QueryError(f"unknown output form `{output}`")
-        if mesh is not None:
-            raise _not_ported("mesh execution", "multi-GPU")
         if fields is None:
             fields = [f.name for f in self.schema.text_fields]
         limits = self._check_batch_limits(batches, limit, limits)
         filter_tables = self._batch_filter_tables(batches, filters)
-        coalesced = self._coalesce(batches, limit, fields, limits, output,
-                                   filter_tables, execution)
-        if coalesced is not None:
-            return coalesced
+        if mesh is None:
+            coalesced = self._coalesce(batches, limit, fields, limits,
+                                       output, filter_tables, execution)
+            if coalesced is not None:
+                return coalesced
+        elif all(f[0] is None for f in filter_tables):
+            # doc-sharded over the mesh: every strategy returns the exact
+            # top-k, so wand / bmw ride the same route; filtered batches
+            # keep the one-device routes below (their per-query mask rows
+            # are doc-axis-global)
+            return self._retry_oom(
+                lambda: self._search_batch_mesh_many(
+                    batches, limit, fields, limits, output, mesh))
         if execution in ("wand", "bmw"):
             # per-query pruning is the default batched pruned path (union
             # waves degrade to a dense scan on Zipf batches); filtered
@@ -3296,6 +3415,168 @@ class IndexReader:
             ids[bad] = pi[:len(bad)]
             host[pos] = sc
             host[pos + 1] = ids
+
+    # -- batches over a mesh (parallel/query.py) ----------------------------
+
+    def _search_batch_mesh_many(self, batches, limit: int, fields, limits,
+                                output: str, mesh):
+        """A stream of unfiltered batches doc-sharded over ``mesh`` (JAX
+        ``_search_batch_mesh_many``): every batch's per-segment launches
+        are enqueued first, then one copy back a device, then the rows
+        stitch back into batch order and the segments merge on the host
+        as on one device."""
+        cap = int(os.environ.get("SEARCHLITE_SPARSE_MAX_BLOCKS", "32"))
+        analyzed_box = [None]
+        launches = []  # per batch: [(seg_ord, entry)]
+        for bi, blimits in enumerate(limits):
+            k_batch = int(blimits.max()) if len(blimits) else limit
+            launched = []
+            for dseg in self.device_segments:
+                seg = dseg.reader
+                if seg.doc_count == 0:
+                    continue
+                qb = self._qb_lazy_native(seg, dseg, batches, bi, fields,
+                                          analyzed_box)
+                launched.append((dseg.ord, self._launch_batch_mesh_segment(
+                    mesh, dseg, qb, min(k_batch, dseg.n1), cap)))
+            launches.append(launched)
+        refs = []
+        for launched in launches:
+            for _ord, e in launched:
+                for _rows, ts, td in e["tiers"]:
+                    refs.extend((ts, td))
+                if e["heavy"] is not None:
+                    refs.extend(e["heavy"])
+        vals = iter(_fetch(refs))
+        out = []
+        for queries, launched, blimits in zip(batches, launches, limits):
+            per_segment = []
+            for seg_ord, e in launched:
+                nq, k = e["nq"], e["k"]
+                scores = np.full((nq, k), -np.inf, dtype=np.float32)
+                ids = np.zeros((nq, k), dtype=np.int32)
+                for rows, _ts, _td in e["tiers"]:
+                    scores[rows] = next(vals)[:len(rows)]
+                    ids[rows] = next(vals)[:len(rows)]
+                if e["heavy"] is not None:
+                    n = len(e["heavy_idx"])
+                    scores[e["heavy_idx"]] = next(vals)[:n]
+                    ids[e["heavy_idx"]] = next(vals)[:n]
+                per_segment.append((seg_ord, scores, ids))
+            out.append(self._merge_batch_output(
+                queries, per_segment, blimits, output, limit))
+        return out
+
+    def _launch_batch_mesh_segment(self, mesh, dseg, qb, k: int, cap: int):
+        """Enqueue one segment's batch doc-sharded over ``mesh`` (JAX
+        ``_launch_batch_mesh_segment``). Rows light on their WORST shard
+        (per-shard strip blocks <= ``cap``) ride the strip kernel once a
+        shard, in pow-4 tiers by that worst width; the rest take
+        :meth:`_launch_heavy_mesh`, or where its guards refuse, the
+        one-device dense scorers with the one-device size routing. Returns
+        the launch record; the caller copies it back."""
+        devs = mesh.shard_devices
+        n_shards = len(devs)
+        nq = int(qb["n_queries"])
+        light_idx = np.zeros(0, dtype=np.int64)
+        heavy_idx = np.arange(nq, dtype=np.int64)
+        tiers = []  # (row ordinals into batch order, ts, td)
+        if (cap > 0 and k <= MAX_STRIP_K and qb["n_slots"] > 0
+                and _packed_applies(qb)):
+            mt = dseg.mesh_sparse_tables(n_shards, devs)
+            bl2 = mt["blocks"].reshape(n_shards, -1)       # [D, n_terms]
+            ent_tids = qb["slot_tids"][qb["qs_slot"]]
+            row_of = np.repeat(np.arange(nq, dtype=np.int64),
+                               csr_row_lengths(qb))
+            rows = np.zeros((n_shards, nq), dtype=np.int64)
+            for d in range(n_shards):
+                np.add.at(rows[d], row_of, bl2[d, ent_tids])
+            row_max = rows.max(axis=0)
+            light_idx = np.flatnonzero(row_max <= cap)
+            heavy_idx = np.flatnonzero(row_max > cap)
+            self.route_rows["mesh_strip"] += len(light_idx)
+            run = make_sharded_batch_scorer(mesh)
+            nblk_min = -(-k // 128)
+            prev = -1
+            for bound in tier_bounds(cap):
+                t_sel = ((row_max[light_idx] > prev)
+                         & (row_max[light_idx] <= bound))
+                prev = bound
+                if not t_sel.any():
+                    continue
+                t_rows = light_idx[t_sel]
+                g = _emit_packed_rows(qb, t_rows, dseg.host.idf32,
+                                      bl_min=16)
+                nblk = pow15_bucket(
+                    max(int(row_max[t_rows].max()), nblk_min, 1),
+                    minimum=16)
+                ts, td = run(
+                    mt["block_docs"], mt["block_impacts"], mt["tid_tbl"],
+                    g["packed"], g["ovr"], mt["sent"], k=k,
+                    t_pad=g["t_pad"], nblk=nblk, log2_run=g["log2_run"],
+                    n_ovr=g["n_ovr"], width=mt["width"])
+                tiers.append((t_rows, ts, td))
+        heavy = None
+        if len(heavy_idx):
+            hqb = (qb if len(heavy_idx) == nq
+                   else subset_impact_batch(qb, heavy_idx))
+            heavy = self._launch_heavy_mesh(mesh, dseg, hqb, k)
+            if heavy is not None:
+                self.route_rows["mesh_dense"] += len(heavy_idx)
+            else:
+                budget = int(os.environ.get("SEARCHLITE_M_BUDGET_BYTES",
+                                            2 * 1024**3))
+                est = (hqb["s_pad"] + hqb["n_queries"]) * dseg.n1 * 4
+                if est <= budget and hqb["flat_extent"] < FLAT_INDEX_LIMIT:
+                    heavy = self._launch_batch_segment(
+                        dseg, hqb, k, allow_sparse=False,
+                        n_rows=len(heavy_idx))
+                else:
+                    hs, hi = self._search_batch_sharded(
+                        dseg, hqb, k, est, budget, n_rows=len(heavy_idx))
+                    pad = (0, k - hs.shape[1])
+                    heavy = (torch.nn.functional.pad(hs, pad,
+                                                     value=float("-inf")),
+                             torch.nn.functional.pad(hi, pad, value=0))
+        return {"tiers": tiers, "heavy": heavy, "heavy_idx": heavy_idx,
+                "nq": nq, "k": k}
+
+    def _launch_heavy_mesh(self, mesh, dseg, hqb, k: int):
+        """The heavy (head-term) remainder of a mesh batch, doc-sharded
+        (JAX ``_launch_heavy_mesh``): per-shard block gather tables from
+        the segment's mesh layout feed ``parallel/query.py::
+        make_sharded_dense_batch_scorer`` (M over the shard's doc slice,
+        the fused kernel once a shard). Returns None where it does not
+        apply (the caller takes the one-device dense scorers):
+        ``SEARCHLITE_MESH_DENSE=0``, or a per-shard M past int32
+        indexing."""
+        if os.environ.get("SEARCHLITE_MESH_DENSE", "1") == "0":
+            return None
+        devs = mesh.shard_devices
+        n_shards = len(devs)
+        mt = dseg.mesh_sparse_tables(n_shards, devs)
+        ensure_dense_tables(hqb)
+        s_pad = hqb["s_pad"]
+        width = mt["width"]
+        if s_pad * (width + 1) >= FLAT_INDEX_LIMIT:
+            return None
+        n_slots = hqb["n_slots"]
+        tids = hqb["slot_tids"][:n_slots]
+        cnt = mt["blocks"].reshape(n_shards, -1)[:, tids]   # [D, n_slots]
+        start = mt["local_start_np"][:, tids]
+        nb = cnt.sum(axis=1)
+        nb_pad = pow2_bucket(max(int(nb.max()), 1), minimum=64)
+        blk_idx = np.full((n_shards, nb_pad), mt["bp"] - 1, dtype=np.int32)
+        slot_row = np.zeros((n_shards, nb_pad), dtype=np.int32)
+        for d in range(n_shards):
+            blk, row, _nb = build_block_tables(start[d], cnt[d],
+                                               mt["bp"] - 1)
+            blk_idx[d, :int(nb[d])] = blk[:int(nb[d])]
+            slot_row[d, :int(nb[d])] = row[:int(nb[d])]
+        run = make_sharded_dense_batch_scorer(mesh)
+        return run(mt["block_docs"], mt["block_impacts"], blk_idx, slot_row,
+                   hqb["w_idx"], hqb["w_val"], mt["dead"], k=k, s_pad=s_pad,
+                   n_queries=hqb["n_queries"], width=width)
 
     # -- batched doc-tile pruning (execution wand / bmw) ---------------------
 

@@ -9,8 +9,10 @@ k1=0.9 b=0.4 (`main.rs:196-197`).
 The commands that open a reader (``search``, ``search-batch``, ``http``)
 run on the card; ``--device cpu`` asks for the
 CPU, and without CUDA the default raises the reader's error. ``--mesh``
-is parsed by ``parallel/mesh.py::parse_mesh_spec`` and ignored on a host with one
-visible device; on more it raises until the multi-GPU routes are ported.
+(``auto`` or a shard count) is parsed by ``parallel/mesh.py::
+parse_mesh_spec`` over the devices of the reader's type: ``auto`` with one
+visible device is ignored, ``--mesh 4`` builds four shards round robin on
+the visible devices (four CPU shards with ``--device cpu``).
 """
 
 from __future__ import annotations
@@ -172,14 +174,15 @@ def build_search_request(args) -> dict:
     return req
 
 
-def _cli_mesh(spec):
-    """--mesh auto|N -> None when unset or only one device is visible
+def _cli_mesh(spec, device=None):
+    """--mesh auto|N over the devices of the reader's type -> a mesh, or
+    None when unset or only one device would take part
     (``parallel/mesh.py::parse_mesh_spec``); bad specs exit as a CLI
     error, not a traceback."""
     from searchlite_tpu_torch.parallel.mesh import parse_mesh_spec
 
     try:
-        return parse_mesh_spec(spec)
+        return parse_mesh_spec(spec, device=device)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         raise SystemExit(2) from None
@@ -189,7 +192,8 @@ def cmd_search(args) -> int:
     index = Index.open(options(args.index, False))
     reader = index.reader(device=args.device)
     request = SearchRequest.from_json(build_search_request(args))
-    result = reader.search(request, mesh=_cli_mesh(args.mesh))
+    result = reader.search(request, mesh=_cli_mesh(args.mesh,
+                                                   reader.device))
     print(json.dumps(result.to_json(), indent=2, ensure_ascii=False))
     return 0
 
@@ -229,7 +233,7 @@ def cmd_search_batch(args) -> int:
         queries, limit=max(limits, default=args.limit),
         execution=args.execution,
         filters=filters if any(f is not None for f in filters) else None,
-        limits=limits, mesh=_cli_mesh(args.mesh))
+        limits=limits, mesh=_cli_mesh(args.mesh, reader.device))
     print(json.dumps({"results": [
         [{"doc_id": d, "score": s} for d, s in row] for row in rows
     ]}, indent=2, ensure_ascii=False))
@@ -273,7 +277,8 @@ def _add_device_args(p, mesh: bool = False) -> None:
         p.add_argument("--mesh", default=None,
                        help='doc-shard query execution over a device '
                             'mesh: "auto" = all local devices, N = that '
-                            'many (single-device hosts ignore it)')
+                            'many shards, round robin on the devices of '
+                            '--device ("auto" on one device is ignored)')
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -313,6 +313,8 @@ HEAVY_KEYS = ("tbl", "base", "log2g", "maximp")
 # the doc-tile run scorers read (int32 docs, f32 RAW impacts: the tile
 # path masks tombstones by ``deleted_tiles``); 8 bytes a posting
 FLAT_KEYS = ("docs_flat", "impacts_flat")
+# DeviceSegment.mesh_sparse_tables' per-shard tensors
+MESH_KEYS = ("block_docs", "block_impacts", "tid_tbl", "sent", "dead")
 
 
 def host_arrays(host: HostSegment) -> dict[str, np.ndarray]:
@@ -376,8 +378,8 @@ class DeviceSegment:
     leaving the segment cache) drops only its own references, and the
     memory is freed when the last member has. ``deleted``,
     ``block_impacts_live``, ``sparse_tid_tbl``, the shards' deleted stack,
-    the tile layout of ``deleted`` and the significant-terms background
-    belong to one member alone."""
+    the mesh tables, the tile layout of ``deleted`` and the
+    significant-terms background belong to one member alone."""
 
     def __init__(self, reader: SegmentReader, segment_ord: int, device,
                  k1: float = 0.9, b: float = 0.4, tiered: bool = False):
@@ -419,6 +421,7 @@ class DeviceSegment:
         self._block_impacts_live = None
         self._deleted_stack = None  # (n_shards, [n_shards, width+1] bool)
         self._sig_bg_cache = None   # ops/device_aggs.py::_sig_bg_structure
+        self._mesh_sparse = None    # mesh_sparse_tables: tombstones folded
 
     def clone_with_tombstones(self, reader: SegmentReader,
                               segment_ord: int) -> "DeviceSegment":
@@ -428,9 +431,9 @@ class DeviceSegment:
         ``deleted`` ([n1] bool). The family's tensors (see the class
         docstring) are this segment's, by identity; ``block_impacts_live``,
         the idf tables, ``sparse_tid_tbl`` (it embeds the f32 idf of the
-        live count), the live df, the shards' deleted stack, the tile
-        layout of ``deleted`` and the significant-terms background are
-        rebuilt for the clone at first use. The live table is always
+        live count), the live df, the shards' deleted stack, the mesh
+        tables, the tile layout of ``deleted`` and the significant-terms
+        background are rebuilt for the clone at first use. The live table is always
         derived from the RAW impacts and the clone's own ``deleted``:
         this segment may itself hold a later tombstone state than the one
         asked for."""
@@ -480,8 +483,8 @@ class DeviceSegment:
         """Let go of the device residents that can be rebuilt from the
         host build (the dense rows, the heavy-term lookup, the filter rows,
         the flat postings, the tile tables' tensors, the doc-shard tables
-        with their deleted stack, the live impact table, the aggregation
-        structures, the vector matrices). Called when a launch runs out of
+        with their deleted stack, the mesh tables, the live impact table,
+        the aggregation structures, the vector matrices). Called when a launch runs out of
         device memory; the next query that needs one builds it again. Only
         this object's references go (the members are rebound, never
         cleared in place): another tombstone state of the segment keeps
@@ -492,9 +495,11 @@ class DeviceSegment:
         self.filter_rows_cache = None
         self._deleted_stack = None
         self._block_impacts_live = None
+        self._mesh_sparse = None
         self.agg_struct_cache = {}
         for vdata in getattr(self.reader, "vectors", {}).values():
             vdata.__dict__.pop("_torch_vectors", None)
+            vdata.__dict__.pop("_torch_sharded", None)
         if self._tile_index is not None:
             self._tile_index.drop_tensors()
 
@@ -575,6 +580,91 @@ class DeviceSegment:
             "posting_base": base,
         }
         self._shared["doc_shards"] = cached
+        return cached
+
+    def mesh_sparse_tables(self, n_shards: int, devices) -> dict:
+        """The doc-sharded block layout and per-shard term tables of the
+        mesh's batched routes (JAX ``DeviceSegment.mesh_sparse_tables``),
+        shard ``d``'s tensors on ``devices[d]``. Built from
+        :meth:`doc_shards`' reordered postings: each shard's 128-wide
+        blocks padded to a uniform pow-1.5 ``bp`` rows (``block_docs`` /
+        ``block_impacts`` [bp, 128]; pad lanes and rows hold the shard's
+        dead doc ``width`` and zero impacts; tombstoned docs' impacts are
+        zeroed too, the strip core's deletion contract), a term table
+        ``tid_tbl`` [3, n_terms_pad] (local block start, block count, f32
+        idf bit-cast), ``sent`` [2] (sentinel block row ``bp - 1``,
+        ``width``) and ``dead`` [width + 1] bool (only the dead column: the
+        fused kernel's deletion mask), as per-shard lists under those keys.
+        On the host: ``blocks`` [D * n_terms] and ``local_start_np`` [D,
+        n_terms] (the light/heavy partition and the dense remainder's
+        gather tables), ``width``, ``bp``, ``n_terms``. Each shard's
+        tensors are its own, even where two shards share a device.
+
+        The tables fold this member's tombstones, so they are its own: a
+        clone builds its own, and :meth:`evict_device_caches` drops them.
+        Cached for the last (n_shards, devices)."""
+        devices = tuple(torch.device(d) for d in devices)
+        key = (n_shards, tuple(str(d) for d in devices))
+        cached = self._mesh_sparse
+        if cached is not None and cached["key"] == key:
+            return cached
+        sh = self.doc_shards(n_shards)
+        n_terms = sh["n_terms"]
+        width = sh["shard_width"]
+        counts = sh["counts"]                      # [D*n_terms]
+        base = sh["posting_base"]                  # [D*n_terms + 1]
+        blocks = -(-counts // 128)
+        block_base = np.concatenate([[0], np.cumsum(blocks)])
+        sb_lo = block_base[np.arange(n_shards) * n_terms]
+        sb_hi = block_base[(np.arange(n_shards) + 1) * n_terms]
+        bp = pow15_bucket(int((sb_hi - sb_lo).max()) + 1, minimum=16)
+        bdocs = np.full((n_shards * bp, 128), width, dtype=np.int32)
+        bimps = np.zeros((n_shards * bp, 128), dtype=np.float32)
+        total = int(counts.sum())
+        if total:
+            run_of = np.repeat(np.arange(len(counts), dtype=np.int64),
+                               counts)
+            shard_of = run_of // n_terms
+            offset = np.arange(total, dtype=np.int64) - base[:-1][run_of]
+            dest = (shard_of * bp
+                    + (block_base[:-1][run_of] - sb_lo[shard_of])) \
+                * 128 + offset
+            docs_sh = sh["docs_sh_np"][:total]
+            imps_sh = sh["imps_sh_np"][:total]
+            if self.live_docs != self.n_docs:
+                glob = shard_of * width + docs_sh.astype(np.int64)
+                imps_sh = np.where(self.host.deleted_np[glob],
+                                   np.float32(0), imps_sh)
+            bdocs.reshape(-1)[dest] = docs_sh
+            bimps.reshape(-1)[dest] = imps_sh
+        n_pad = pow15_bucket(max(n_terms, 1), minimum=1024)
+        tid_tbl = np.zeros((n_shards, 3, n_pad), dtype=np.int32)
+        local_start = (block_base[:-1].reshape(n_shards, n_terms)
+                       - sb_lo[:, None])
+        tid_tbl[:, 0, :n_terms] = local_start.astype(np.int32)
+        tid_tbl[:, 1, :n_terms] = blocks.reshape(
+            n_shards, n_terms).astype(np.int32)
+        tid_tbl[:, 2, :n_terms] = self.host.idf32.view(np.int32)[None, :]
+        dead = np.zeros(width + 1, dtype=bool)
+        dead[width] = True
+        per_shard = [from_host_arrays({
+            "block_docs": bdocs[d * bp:(d + 1) * bp],
+            "block_impacts": bimps[d * bp:(d + 1) * bp],
+            "tid_tbl": tid_tbl[d],
+            "sent": np.array([bp - 1, width], dtype=np.int32),
+            "dead": dead}, dev, keys=MESH_KEYS)
+            for d, dev in enumerate(devices)]
+        cached = {
+            "key": key,
+            "n_shards": n_shards,
+            "width": int(width),
+            "bp": int(bp),
+            "n_terms": n_terms,
+            "blocks": blocks,
+            "local_start_np": local_start.astype(np.int64),
+            **{name: [t[name] for t in per_shard] for name in MESH_KEYS},
+        }
+        self._mesh_sparse = cached
         return cached
 
     def dense_rows(self, budget_bytes: int):

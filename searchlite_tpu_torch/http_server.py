@@ -60,12 +60,13 @@ class AppState:
         self.index_path = index_path
         # the readers' torch device; None = the index's default (the card)
         self.device = device
-        # doc-sharded multi-device execution: "auto" = all local devices,
-        # an int = that many. Parsed lazily on the first search
-        # (parallel/mesh.py::parse_mesh_spec): ignored on a host with one
-        # visible device, an error on more until the mesh routes are
-        # ported.
+        # doc-sharded execution over a mesh: "auto" = every visible device
+        # of the readers' type, an int = that many shards round robin on
+        # them. Parsed on the first search (parallel/mesh.py::
+        # parse_mesh_spec), one mesh a server; "auto" on one device is
+        # ignored.
         self.mesh_spec = mesh
+        self._mesh = None
         self.refresh_on_commit = refresh_on_commit
         self.max_body_bytes = max_body_bytes
         # concurrency cap, parity with the reference's tower layer
@@ -117,14 +118,24 @@ class AppState:
     def mesh(self):
         if self.mesh_spec in (None, "", "off", "none", "0", 0):
             return None
-        from searchlite_tpu_torch.parallel.mesh import parse_mesh_spec
-
+        # concurrent first requests must not build two meshes: the
+        # per-shard tables cache per mesh
         with self._index_lock:
-            if self.mesh_spec is not None \
-                    and parse_mesh_spec(self.mesh_spec) is None:
-                # one device: the mesh buys nothing, skip for good
-                self.mesh_spec = None
-        return None
+            spec = self.mesh_spec
+            if spec is None:
+                return None
+            if self._mesh is None:
+                from searchlite_tpu_torch import default_device
+                from searchlite_tpu_torch.parallel.mesh import (
+                    parse_mesh_spec,
+                )
+
+                self._mesh = parse_mesh_spec(
+                    spec, device=self.device or default_device())
+                if self._mesh is None:
+                    # one device: the mesh buys nothing, skip for good
+                    self.mesh_spec = None
+            return self._mesh
 
 
 def _error_payload(err_type: str, reason: str) -> bytes:

@@ -155,11 +155,12 @@ def _fused_topk_cuda(w1, m1, deleted, *, k: int, w2, m2, filter_rows,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.fused_topk_launch(
-        w1.data_ptr(), m1.data_ptr(), k1, ptr(w2), ptr(m2), k2,
-        deleted.data_ptr(), ptr(filter_rows), ptr(fidx), q, n, k,
-        ws.data_ptr(), ws_bytes, ts.data_ptr(), td.data_ptr(), stream)
+    with torch.cuda.device(dev):  # launch on the operands' card
+        err = lib.fused_topk_launch(
+            w1.data_ptr(), m1.data_ptr(), k1, ptr(w2), ptr(m2), k2,
+            deleted.data_ptr(), ptr(filter_rows), ptr(fidx), q, n, k,
+            ws.data_ptr(), ws_bytes, ts.data_ptr(), td.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_topk launch failed: cudaError {err} "
                            f"(Q={q}, N={n}, k={k})")

@@ -34,6 +34,16 @@ def next_pow2(n: int) -> int:
     return 1 if n <= 1 else 1 << (n - 1).bit_length()
 
 
+def pow4_bucket(n: int, minimum: int = 4096) -> int:
+    """Round up to the pow-4 ladder (4096, 16384, 65536, ...): coarse
+    buckets for the flat-posting extents (``build_m``'s ``p_pad``, the
+    tile run tables, the mesh executor's per-shard posting slices)."""
+    out = minimum
+    while out < n:
+        out *= 4
+    return out
+
+
 def pow2_bucket(n: int, minimum: int = 4096) -> int:
     """Round up to the pow-2 ladder. Used where the padded extent sets
     the DEVICE cost (the M scatter is update-count-bound, so every pad
@@ -552,6 +562,39 @@ def build_m_from_blocks(block_docs, block_impacts, blk_idx, slot_row,
     m_flat = torch.zeros(s_count * n1 + nb * 128, dtype=torch.float32,
                          device=dev)
     m_flat[flat_idx.reshape(-1)] = imps2d.reshape(-1)
+    return m_flat[:s_count * n1].reshape(s_count, n1)
+
+
+def build_m(docs_flat, impacts_flat, slot_start, slot_len, n1: int,
+            p_pad: int):
+    """M [S, n1] f32 from flat CSR postings (``ops/impact.py::build_m``):
+    slot ``s`` holds postings ``slot_start[s] .. + slot_len[s]`` of
+    ``docs_flat`` / ``impacts_flat`` ([P] int32 / f32, docs < n1). The
+    mesh executor's per-shard builds (``parallel/query.py``) run it over a
+    shard's local postings, where no block layout exists. Position ``p <
+    p_pad`` of the slots' concatenation belongs to the slot whose
+    cumulative end first passes it: a binary search over the ends (the JAX
+    op scatters marks and scans), the same positions exactly. Positions
+    past the slots' total, and slots past the table, write nothing; a doc
+    appears at most once per slot, so every write has a place of its own
+    and the result is deterministic."""
+    s_count = slot_start.shape[0]
+    dev = docs_flat.device
+    lens = slot_len.long()
+    ends = torch.cumsum(lens, dim=0)
+    positions = torch.arange(p_pad, dtype=torch.int64, device=dev)
+    seg = torch.clamp(torch.searchsorted(ends, positions, right=True),
+                      max=s_count - 1)
+    valid = positions < ends[s_count - 1]
+    p_idx = slot_start.long()[seg] + (positions - (ends - lens)[seg])
+    p_idx = torch.where(valid, p_idx, 0)
+    docs = docs_flat[p_idx].long()
+    imps = torch.where(valid, impacts_flat[p_idx].to(torch.float32), 0.0)
+    flat_idx = torch.where(valid, seg * n1 + docs,
+                           s_count * n1 + positions)
+    m_flat = torch.zeros(s_count * n1 + p_pad, dtype=torch.float32,
+                         device=dev)
+    m_flat[flat_idx] = imps
     return m_flat[:s_count * n1].reshape(s_count, n1)
 
 

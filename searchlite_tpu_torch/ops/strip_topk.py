@@ -319,13 +319,14 @@ def _strip_topk_blocks_cuda(block_docs, block_impacts, bstart, bcnt, w,
     scratch = None
     if k2 > sort_smem:
         scratch = torch.empty((B, k2), dtype=torch.int64, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(block_docs.data_ptr(), block_impacts.data_ptr(),
-             bstart.data_ptr(), bcnt.data_ptr(), w.data_ptr(),
-             sent.data_ptr(), B, t_pad, nblk, k, k2, log2_run, kt, n_tiles,
-             buf.data_ptr(), tile_counts.data_ptr(), ts.data_ptr(),
-             td.data_ptr(), counts.data_ptr(),
-             None if scratch is None else scratch.data_ptr(), stream)
+    with torch.cuda.device(dev):  # launch on the operands' card
+        err = fn(block_docs.data_ptr(), block_impacts.data_ptr(),
+                 bstart.data_ptr(), bcnt.data_ptr(), w.data_ptr(),
+                 sent.data_ptr(), B, t_pad, nblk, k, k2, log2_run, kt,
+                 n_tiles, buf.data_ptr(), tile_counts.data_ptr(),
+                 ts.data_ptr(), td.data_ptr(), counts.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(),
+                 torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"strip_topk launch failed: cudaError {err} "
                            f"(B={B}, t_pad={t_pad}, nblk={nblk}, k={k})")
@@ -387,12 +388,13 @@ def _strip_lanes_blocks_cuda(block_docs, block_impacts, bstart, bcnt, w,
                        device=dev)
     tile_counts = torch.empty((B, n_tiles), dtype=torch.int32, device=dev)
     if B:
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lanes(block_docs.data_ptr(), block_impacts.data_ptr(),
-                    bstart.data_ptr(), bcnt.data_ptr(), w.data_ptr(),
-                    sent.data_ptr(), B, t_pad, nblk, log2_run, n_tiles,
-                    scores.data_ptr(), docs.data_ptr(),
-                    tile_counts.data_ptr(), stream)
+        with torch.cuda.device(dev):  # launch on the operands' card
+            err = lanes(block_docs.data_ptr(), block_impacts.data_ptr(),
+                        bstart.data_ptr(), bcnt.data_ptr(), w.data_ptr(),
+                        sent.data_ptr(), B, t_pad, nblk, log2_run, n_tiles,
+                        scores.data_ptr(), docs.data_ptr(),
+                        tile_counts.data_ptr(),
+                        torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"strip_lanes launch failed: cudaError {err} "
                                f"(B={B}, t_pad={t_pad}, nblk={nblk})")

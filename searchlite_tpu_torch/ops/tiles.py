@@ -62,6 +62,7 @@ from searchlite_tpu_torch.ops.impact import (
     densify_w,
     next_pow2,
     pow2_bucket,
+    pow4_bucket,
 )
 from searchlite_tpu_torch.ops.score import _matmul_f32, topk_by_doc
 
@@ -73,15 +74,6 @@ UB_SAFETY = 1.02
 # TileIndex's tensors (from_host_arrays keys): the tile-max block layout
 # and the deleted mask in tile layout
 TILE_KEYS = ("tile_docs", "tile_maxes", "deleted_tiles")
-
-
-def pow4_bucket(n: int, minimum: int = 1024) -> int:
-    """Round up to the pow-4 ladder (the run tables' ``r_pad`` / ``p_pad``
-    and the wave budget arithmetic)."""
-    out = minimum
-    while out < n:
-        out *= 4
-    return out
 
 
 def default_tile_width(n1: int, max_tiles: int = 4096,

@@ -2,8 +2,8 @@
 quantization.
 
 The port of ``searchlite_tpu/ops/vector.py`` (``vector_topk``,
-``quantize_int8``, the device cache; the mesh variant waits for the
-multi-GPU slice). Brute force over every present, unmasked vector: one
+``quantize_int8``, the device cache, and ``vector_topk_sharded``, the
+mesh form). Brute force over every present, unmasked vector: one
 ``[Q, dim] @ [dim, n_docs]`` product (``torch.matmul``: the JAX package
 computes the similarity matrix with a plain dot outside any hand-written
 kernel, and so does the port), then the top-k by (score desc, doc asc).
@@ -29,8 +29,9 @@ vectors, ``l2`` the negated euclidean distance (higher is better). Missing
 vectors never match.
 
 The buffers are cached on the ``VectorData`` object per (device,
-quantization), so repeated searches upload only the query;
-``DeviceSegment.evict_device_caches`` drops them.
+quantization), and the mesh form's per-shard buffers per (quantization,
+padded rows, mesh devices), so repeated searches upload only the query;
+``DeviceSegment.evict_device_caches`` drops both.
 """
 
 from __future__ import annotations
@@ -128,10 +129,7 @@ def vector_topk(vdata, mask: np.ndarray, queries: np.ndarray, k: int,
                 np.zeros((q, 0), dtype=np.int64))
     device = torch.device(device)
     vectors, v_scale, v_sq, present = _device_vectors(vdata, quant, device)
-    queries = np.asarray(queries, dtype=np.float32)
-    q_scale = np.ones(queries.shape[0], dtype=np.float32)
-    if quant == "int8":
-        queries, q_scale = quantize_int8(queries)
+    queries, q_scale = _prepare_query(queries, quant)
     masked = vector_scores(
         vectors, v_scale, v_sq, present,
         torch.from_numpy(np.ascontiguousarray(mask)).to(device),
@@ -139,4 +137,68 @@ def vector_topk(vdata, mask: np.ndarray, queries: np.ndarray, k: int,
         torch.from_numpy(q_scale).to(device),
         metric=metric, quantization=quant)
     scores, ids = topk_by_doc(masked, k)
+    return scores.cpu().numpy(), ids.cpu().numpy().astype(np.int64)
+
+
+def _prepare_query(queries: np.ndarray, quant: str):
+    """(query operand values, q_scale) of ``queries`` at ``quant``."""
+    queries = np.asarray(queries, dtype=np.float32)
+    q_scale = np.ones(queries.shape[0], dtype=np.float32)
+    if quant == "int8":
+        queries, q_scale = quantize_int8(queries)
+    return queries, q_scale
+
+
+def vector_topk_sharded(vdata, mask: np.ndarray, queries: np.ndarray, k: int,
+                        metric: str, mesh, quantization: str | None = None):
+    """Mesh form of :func:`vector_topk` (JAX ``vector_topk_sharded``):
+    vector rows, padded to a multiple of the shard count (pads absent),
+    shard over the mesh (``parallel/query.py::make_sharded_vector_topk``);
+    each shard's exact similarity and local top-k, then the merge. The
+    same results as :func:`vector_topk`. Returns (scores [Q, k] f32, ids
+    [Q, k] int64) numpy."""
+    from searchlite_tpu_torch.parallel.query import make_sharded_vector_topk
+
+    quant = quantization or "none"
+    n = vdata.vectors.shape[0]
+    k = min(k, n) if n else 0
+    if k == 0 or n == 0:
+        q = queries.shape[0]
+        return (np.zeros((q, 0), dtype=np.float32),
+                np.zeros((q, 0), dtype=np.int64))
+    devs = mesh.shard_devices
+    n_shards = len(devs)
+    per = -(-n // n_shards)
+    n_pad = per * n_shards
+    cache = vdata.__dict__.setdefault("_torch_sharded", {})
+    key = (quant, n_pad, mesh.key)
+    entry = cache.get(key)
+    if entry is None:
+        vecs = vdata.vectors
+        v_sq = np.zeros(n_pad, dtype=np.float32)
+        v_sq[:n] = np.sum(vecs.astype(np.float32) ** 2, axis=1)
+        present = np.zeros(n_pad, dtype=bool)
+        present[:n] = vdata.present
+        scale = np.ones(n_pad, dtype=np.float32)
+        if quant == "int8":
+            vecs, scale[:n] = quantize_int8(vecs)
+        padded = np.zeros((n_pad, vecs.shape[1]), dtype=vecs.dtype)
+        padded[:n] = vecs
+        sl = [slice(d * per, (d + 1) * per) for d in range(n_shards)]
+        entry = ([_operand(padded[s], quant, dev) for s, dev in zip(sl, devs)],
+                 [torch.from_numpy(scale[s]).to(dev)
+                  for s, dev in zip(sl, devs)],
+                 [torch.from_numpy(v_sq[s]).to(dev)
+                  for s, dev in zip(sl, devs)],
+                 [torch.from_numpy(present[s]).to(dev)
+                  for s, dev in zip(sl, devs)])
+        cache[key] = entry
+    vectors, v_scale, v_sq, present = entry
+    mask_pad = np.zeros(n_pad, dtype=bool)
+    mask_pad[:len(mask)] = mask
+    qvals, q_scale = _prepare_query(queries, quant)
+    run = make_sharded_vector_topk(mesh)
+    scores, ids = run(vectors, v_scale, v_sq, present, mask_pad,
+                      _operand(qvals, quant, mesh.device), q_scale, k=k,
+                      metric=metric, quantization=quant)
     return scores.cpu().numpy(), ids.cpu().numpy().astype(np.int64)

@@ -1,1 +1,3 @@
-"""Multi-device execution: only the mesh spec parser so far."""
+"""Doc-sharded execution over a mesh of torch devices: the mesh and its
+spec parser (``mesh.py``), the sharded routes (``query.py``) and a dry run
+of every path (``dryrun.py``)."""

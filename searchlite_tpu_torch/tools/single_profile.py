@@ -1,7 +1,7 @@
 """Profile of single-query ``search()`` on the card, per route.
 
     python -m searchlite_tpu_torch.tools.single_profile [--docs N]
-        [--streams-only] [--sharded] [--aggs] [--vectors]
+        [--streams-only] [--sharded] [--aggs] [--vectors] [--mesh N]
 
 Run from the repository root on a machine with an NVIDIA GPU. Builds
 ``chip_smoke``'s index over ``bench.py``'s corpus at ``N`` docs (default
@@ -52,6 +52,12 @@ above, ``chip_smoke``'s phase-e requests (and write
     a hybrid request (alpha 0.5) with a filter, and a vector-only request
     on the bf16 and on the int8 field.
 
+``--mesh N`` runs, in place of every set above, the 9 single queries and
+the three 1024-query batches as one arrays stream (bm25), each without
+and with an ``N``-shard mesh (``parallel/mesh.py::parse_mesh_spec``: N
+logical shards on one card), in turns (one device, mesh, mesh, one
+device), and writes ``single_profile_mesh[_<N>].json``.
+
 For each set: the segments per route, the unprofiled wall per query (host
 clock around a call that ends in a synchronise; p50, min, max), and over
 one profiled pass the device busy time per query, the busy share of the
@@ -96,14 +102,15 @@ def _topk_at_width(block_docs, block_impacts, bstart, bcnt, w, sent, *,
 
 
 def measure(reader, queries, name: str, passes: int = 1,
-            extra: dict | None = None, env: dict | None = None) -> dict:
+            extra: dict | None = None, env: dict | None = None,
+            mesh=None) -> dict:
     """Wall per query over ``passes`` passes, then one profiled pass.
     ``extra`` holds more request fields, ``env`` environment settings
-    for the set."""
+    for the set, ``mesh`` the mesh the requests run over."""
     saved = {k: os.environ.get(k) for k in env or {}}
     os.environ.update(env or {})
     try:
-        return _measure(reader, queries, name, passes, extra or {})
+        return _measure(reader, queries, name, passes, extra or {}, mesh)
     finally:
         for k, v in saved.items():
             if v is None:
@@ -112,7 +119,8 @@ def measure(reader, queries, name: str, passes: int = 1,
                 os.environ[k] = v
 
 
-def _measure(reader, queries, name: str, passes: int, extra: dict) -> dict:
+def _measure(reader, queries, name: str, passes: int, extra: dict,
+             mesh=None) -> dict:
     # after the warm pass: ``passes`` timed passes, one under
     # torch.profiler, one under cProfile
     import torch
@@ -123,7 +131,7 @@ def _measure(reader, queries, name: str, passes: int, extra: dict) -> dict:
     def search(q):
         # a query string, or a whole request
         req = q if isinstance(q, dict) else {"query": q, "limit": 10}
-        return reader.search({**req, **extra})
+        return reader.search({**req, **extra}, mesh=mesh)
 
     for q in queries:
         search(q)  # warm
@@ -191,7 +199,7 @@ def _host_top(run, calls: int, n: int = 10) -> list:
 
 def measure_stream(reader, stream, execution: str, calls: int = 3,
                    name: str | None = None, limit: int = 10,
-                   filters=None) -> dict:
+                   filters=None, mesh=None) -> dict:
     """One ``search_batch_many`` stream in arrays form: wall per call over
     ``calls`` calls, then ``calls`` profiled calls, then one call under
     cProfile (the host functions with the most own time)."""
@@ -204,7 +212,8 @@ def measure_stream(reader, stream, execution: str, calls: int = 3,
 
     def call():
         reader.search_batch_many(stream, limit=limit, output="arrays",
-                                 execution=execution, filters=filters)
+                                 execution=execution, filters=filters,
+                                 mesh=mesh)
 
     call()  # warm
     rows = dict(reader.route_rows)
@@ -271,6 +280,9 @@ def main() -> int:
                     help="the aggregation requests of phase e")
     ap.add_argument("--vectors", action="store_true",
                     help="the vector and hybrid requests of phase e")
+    ap.add_argument("--mesh", type=int, default=None,
+                    help="the singles and the stream without and with a "
+                         "mesh of this many shards, in turns")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAILED: torch.cuda.is_available() is False")
@@ -296,6 +308,21 @@ def main() -> int:
     singles = bench.build_queries()[0]
     out = {"card": card, "docs": args.docs, "resident": resident,
            "sets": []}
+    if args.mesh:
+        from searchlite_tpu_torch.parallel.mesh import parse_mesh_spec
+
+        mesh = parse_mesh_spec(args.mesh)
+        out["mesh"] = {"shape": mesh.shape, "devices": list(mesh.key)}
+        stream = bench.build_queries()[1:]
+        for which in ("one device", "mesh", "mesh", "one device"):
+            m = mesh if which == "mesh" else None
+            out["sets"].append(measure(reader, singles[:9],
+                                       f"singles, {which}", passes=3,
+                                       mesh=m))
+            out["sets"].append(measure_stream(reader, stream, "bm25",
+                                              name=f"stream, {which}",
+                                              mesh=m))
+        return write(out, "_mesh", args.docs)
     if args.sharded or args.aggs or args.vectors:
         phase_e(reader, chip_smoke, vectors, args, out)
         return write(out, "_phase_e", args.docs)

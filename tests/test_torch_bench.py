@@ -95,3 +95,46 @@ def test_bench_script_needs_a_card_by_default():
         text=True, timeout=300)
     assert res.returncode != 0
     assert "torch.cuda.is_available() is False" in res.stdout
+
+
+def test_bench_1m_script_passes_its_gate_on_the_cpu():
+    """The 1M-doc protocol (searchlite_tpu_torch/tools/bench_1m.py) at
+    3,000 docs, with a 4-shard CPU mesh: every row measured and the oracle
+    gate true, the mesh's included."""
+    env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
+    res = subprocess.run(
+        [sys.executable, "-m", "searchlite_tpu_torch.tools.bench_1m",
+         "--device", "cpu", "--docs", "3000", "--mesh", "4"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stdout + res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    detail = out["detail"]
+    assert detail["verified_vs_oracle"] is True
+    assert detail["verified"] == {
+        "bm25": True, "wand": True, "arrays": True, "arrays_b4096": True,
+        "mesh_arrays": True}
+    for row in ("bm25/pairs", "bm25/arrays", "wand/pairs", "wand/arrays",
+                "bm25/arrays/b4096", "mesh bm25/arrays"):
+        assert detail[f"qps {row}"] > 0, row
+    assert detail["p50_single_query_ms"] > 0 and detail["segments"] == 1
+    assert detail["mesh"]["shape"] == {"query": 1, "shard": 4}
+    assert detail["mesh"]["route_rows"]["mesh_strip"] > 0
+    with open(os.path.join(REPO, "chiprun_out", "bench_1m_3000.json")) as fh:
+        assert json.loads(fh.read()) == out
+
+
+@pytest.mark.parametrize("mesh", [[], ["--mesh", "4"]])
+def test_soak_http_passes_on_the_cpu(mesh):
+    """searchlite_tpu_torch/tools/soak_http.py for a few seconds on the
+    CPU, with and without a mesh: traffic flowed both ways, no error, no
+    violation against the independent reader."""
+    env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
+    res = subprocess.run(
+        [sys.executable, "-m", "searchlite_tpu_torch.tools.soak_http", "3",
+         "--device", "cpu", *mesh], cwd=REPO, env=env, capture_output=True,
+        text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr[-3000:]
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["violations"] == [] and out["n_errors"] == 0
+    assert out["added"] > 0 and out["commits"] > 0 and out["searches"] > 0
+    assert out["mesh"] == ({"query": 1, "shard": 4} if mesh else None)

@@ -8,8 +8,8 @@ dense route, whose sums run in another order (divergence D10). Ids are
 compared where scores are finite and not near-tied. Also covered: state
 carried from the JAX segment (``from_host_arrays``, bit for bit), rows
 over the strip cap, the JAX reader on the oversized-corpus route,
-coalesced streams, per-query limits, both outputs, and the one option the
-port refuses (mesh)."""
+coalesced streams, per-query limits, both outputs, and the options that
+once raised (mesh, aggregations, the doc-sharded scan)."""
 
 import numpy as np
 import pytest
@@ -289,14 +289,19 @@ def test_python_prep_for_queries_native_prep_rejects(index):
 
 
 def test_unported_options_raise(index, monkeypatch):
-    """Mesh execution is the one option left unported. search()'s
-    aggregations answer, and over the dense-M budget filtered and
-    k > 1024 batches take the doc-sharded scan, with the under-budget
-    answers."""
+    """Nothing raises any more: a batch over a mesh answers with the
+    one-device answer, search()'s aggregations answer, and over the
+    dense-M budget filtered and k > 1024 batches take the doc-sharded
+    scan, with the under-budget answers."""
+    from searchlite_tpu_torch.parallel.mesh import make_mesh
+
     port = IndexReader(index, device="cpu")
     q = ["w1 w2"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.search_batch(q, mesh=object())
+    mesh = make_mesh(devices=[torch.device("cpu")] * 2)
+    assert_close_arrays(
+        port.search_batch_many([q], limit=10, output="arrays")[0],
+        port.search_batch_many([q], limit=10, output="arrays",
+                               mesh=mesh)[0])
     for execution in ("wand", "bmw"):
         assert port.search_batch(q, execution=execution) == \
             port.search_batch(q)

@@ -364,8 +364,8 @@ def test_default_requests_take_the_dense_route(readers):
 
 
 def test_unported_options_raise(readers, monkeypatch):
-    """Mesh execution is the one option left unported. Aggregations and
-    vector clauses answer as the JAX reader does."""
+    """Nothing is left unported: aggregations and vector clauses answer as
+    the JAX reader does, and a mesh with the one-device answer."""
     jreader, treader = readers
     agg_req = {"query": "systems", "limit": 5,
                "aggs": {"t": {"type": "terms", "field": "tag"},
@@ -384,8 +384,12 @@ def test_unported_options_raise(readers, monkeypatch):
         jreader.search(vec_req)
     with pytest.raises(QueryError, match="unknown vector field"):
         treader.search(vec_req)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        treader.search({"query": "systems", "limit": 5}, mesh=object())
+    from searchlite_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(devices=["cpu"] * 4)
+    assert_results_equal(
+        treader.search({"query": "systems", "limit": 5}, mesh=mesh),
+        treader.search({"query": "systems", "limit": 5}))
     # a segment over the dense-M budget no longer raises: the chunked
     # tile executor answers it with the dense executor's hits
     dense = treader.search({"query": "systems", "limit": 5})

@@ -4,8 +4,9 @@ package's: the cases of tests/test_surfaces.py, each driven through both
 packages on directories of their own, the port with ``device="cpu"`` /
 ``--device cpu``, and the JSON that comes out compared (ids, counts and
 shapes equal, scores within the f32_strict tolerance: rtol 1e-6, atol
-1e-4). The mesh class becomes: ``--mesh auto`` on a host with one device
-is ignored.
+1e-4). The mesh class: ``--mesh auto`` with one device of the reader's
+type is ignored, ``--mesh 4 --device cpu`` runs four CPU shards; both give
+the JSON the JAX surfaces give on their virtual devices.
 
 ``cli.py``, ``http_server.py`` and ``embed.py`` differ from the JAX
 package's files by their device argument (and the port's own
@@ -179,6 +180,43 @@ class TestCli:
                           device=("--device", "cpu", "--mesh", "auto"))
         assert [h["doc_id"] for h in batch["results"][1]] == ["doc-2"]
 
+    def test_cli_mesh_shards_on_the_cpu(self, both, monkeypatch):
+        """``--mesh 4 --device cpu`` runs four CPU shards (the JAX CLI runs
+        four of its virtual devices): the same JSON as without a mesh, and
+        as the JAX surfaces; ``auto`` on the one CPU device is ignored."""
+        import searchlite_tpu_torch.api.reader as port_reader
+
+        seen = []
+        real_search = port_reader.IndexReader.search
+        real_many = port_reader.IndexReader.search_batch_many
+
+        def search(self, req, mesh=None):
+            seen.append(mesh)
+            return real_search(self, req, mesh=mesh)
+
+        def many(self, *args, mesh=None, **kw):
+            seen.append(mesh)
+            return real_many(self, *args, mesh=mesh, **kw)
+
+        monkeypatch.setattr(port_reader.IndexReader, "search", search)
+        monkeypatch.setattr(port_reader.IndexReader, "search_batch_many",
+                            many)
+        both.seed()
+        plain = both.json("search", "-q", "is", "--limit", "5")
+        plain_batch = both.json("search-batch", "-q", "is", "-q",
+                                "database", "--limit", "3")
+        seen.clear()
+        for spec in ("4", "auto"):
+            got = both.json("search", "-q", "is", "--limit", "5", "--mesh",
+                            spec)
+            assert_close_tree(got, plain, spec)
+        batch = both.json("search-batch", "-q", "is", "-q", "database",
+                          "--limit", "3", "--mesh", "4")
+        assert_close_tree(batch, plain_batch, "search-batch")
+        assert [None if m is None else m.shape["shard"]
+                for m in seen] == [4, None, 4]
+        assert len(plain["hits"]) == 2
+
     def test_bad_mesh_spec_exits_2(self, both, dirs):
         both.seed()
         for main, name, extra in ((jax_cli, "jax", []),
@@ -215,10 +253,10 @@ def test_parse_mesh_spec_one_device_rule(monkeypatch):
     assert parse_mesh_spec("auto") is None
     with pytest.raises(ValueError, match="invalid mesh spec"):
         parse_mesh_spec("many")
+    # more than one device takes part: a mesh, round robin on the cards
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    for spec in ("auto", "4", 2):
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
-            parse_mesh_spec(spec)
+    for spec, n in (("auto", 4), ("4", 4), (2, 2)):
+        assert parse_mesh_spec(spec).shape == {"query": 1, "shard": n}
     assert parse_mesh_spec("off") is None
 
 
@@ -472,6 +510,31 @@ def test_mesh_auto_on_one_device_is_ignored_http(tmp_path):
         assert body["results"][1][0]["doc_id"] == "doc-3"
         state = servers.servers[1].RequestHandlerClass.state
         assert state.mesh is None and state.mesh_spec is None
+    finally:
+        servers.shutdown()
+
+
+def test_http_mesh_four_cpu_shards(tmp_path):
+    """A server with ``mesh=4`` on the CPU builds one 4-shard mesh for its
+    life and answers as the JAX server on four virtual devices."""
+    servers = Servers(tmp_path, mesh=4)
+    try:
+        servers.seed()
+        _, body = servers.call("POST", "/search", {"query": "is",
+                                                   "limit": 5})
+        assert [h["doc_id"] for h in body["hits"]] == ["doc-1", "doc-2"]
+        _, body = servers.call("POST", "/search_batch",
+                               {"queries": ["is", "tpus"], "limit": 3})
+        assert len(body["results"][0]) == 2
+        assert body["results"][1][0]["doc_id"] == "doc-3"
+        _, body = servers.call("POST", "/search", {
+            "query": "is", "limit": 5,
+            "aggs": {"langs": {"type": "terms", "field": "lang"}}})
+        assert body["aggregations"]["langs"]["buckets"]
+        state = servers.servers[1].RequestHandlerClass.state
+        mesh = state.mesh
+        assert mesh.shape == {"query": 1, "shard": 4}
+        assert state.mesh is mesh  # one mesh a server
     finally:
         servers.shutdown()
 

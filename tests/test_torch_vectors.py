@@ -406,9 +406,16 @@ def test_bad_request_raises_in_both(indexes, name):
 
 
 def test_mesh_still_raises(indexes):
-    port = IndexReader(indexes("cosine"), device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        port.search(REQUESTS["cosine_ranking"][1], mesh=object())
+    """The mesh no longer raises: vector clauses shard their rows and
+    answer as on one device and as the JAX reader does."""
+    from searchlite_tpu_torch.parallel.mesh import make_mesh
+
+    index = indexes("cosine")
+    port = IndexReader(index, device="cpu")
+    req = REQUESTS["cosine_ranking"][1]
+    got = port.search(req, mesh=make_mesh(devices=["cpu"] * 3))
+    assert_results_equal(got, port.search(req))
+    assert_results_equal(got, index.reader().search(req))
 
 
 @pytest.mark.parametrize("quant", [None, "bf16", "int8"])
