@@ -98,6 +98,19 @@ NVIDIA GPU.
       kernels held against plain on the first launch's per-shard operands;
       the terms / stats / range partials against numpy; the mesh and the
       one-device path timed in turns.
+   i. the bf16 mode (``run_bf16``, after h): phase a's index reopened under
+      ``SEARCHLITE_PRECISION=bf16`` (bf16 ``block_impacts``, flat postings,
+      shard and mesh tables and dense rows; their resident bytes printed
+      beside phase a's): the b1024 x3 stream (launching what phase a
+      launched, as the strip kernel's bf16 variant), b256, filtered b256
+      and b32 at k = 2,000 (bf16 dense rows through the fused kernel's bf16
+      variant), the filtered b1024 scan, the 9 singles and the sparse
+      singles, the wand stream and the b1024 stream over the 4-shard mesh;
+      every answer within ``bench.py``'s bf16 gate of the oracle and within
+      2^-7 of the exact reader's; both bf16 variants held against their
+      plain versions on the first launch's operands (and, before the main
+      paths, at the f32 kernels' shapes: strip bit-identical, fused to f32
+      reassociation).
    Every result is checked against ``bench.py``'s f64 oracle under
    ``SEARCHLITE_PRECISION=f32_strict`` (masked by the port's filter where
    there is one; result counts too; the structured set against oracles
@@ -338,17 +351,19 @@ def bound_ms(ops: int, nbytes: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def strip_work(bstart, bcnt, k: int):
+def strip_work(bstart, bcnt, k: int, imp_bytes: int = 4):
     """(operations, bytes) of one strip launch on these tables: every
-    block row some row reads (doc and impact, 1 KiB) once, the tables, the
-    output keys; a multiply and an add per live lane."""
+    block row some row reads (doc and impact: 1 KiB, 768 B with bf16
+    impacts) once, the tables, the output keys; a multiply and an add per
+    live lane."""
     rows = set()
     for b in range(bstart.shape[0]):
         for j in range(bstart.shape[1]):
             rows.update(range(int(bstart[b, j]),
                               int(bstart[b, j]) + int(bcnt[b, j])))
     lanes = int(bcnt.sum()) * 128
-    nbytes = len(rows) * 128 * 8 + bstart.size * 12 + bstart.shape[0] * k * 8
+    nbytes = (len(rows) * 128 * (4 + imp_bytes) + bstart.size * 12
+              + bstart.shape[0] * k * 8)
     return 2 * lanes, nbytes
 
 
@@ -357,8 +372,9 @@ def fused_work(w1, m1, deleted, k: int, w2=None, m2=None, filter_rows=None,
     """(operations, bytes) of one fused call on these inputs: an FMA per
     nonzero weight and doc of every query some doc can match (a query
     whose filter matches no live doc needs none); every M row such a query
-    weights read once, the weights, the deletion mask, the filter rows the
-    queries name, the output written once."""
+    weights read once (in its stored type: 2 bytes an entry in bf16), the
+    weights, the deletion mask, the filter rows the queries name, the
+    output written once."""
     import torch
 
     n = m1.shape[1]
@@ -367,12 +383,13 @@ def fused_work(w1, m1, deleted, k: int, w2=None, m2=None, filter_rows=None,
         live = (filter_rows[fidx.long()] & ~deleted[None, :]).any(dim=1)
     ops = 0
     nbytes = n + w1.shape[0] * k * 8
-    for w in (w1, w2):
+    for w, m in ((w1, m1), (w2, m2)):
         if w is None:
             continue
         nz = (w != 0) & live[:, None]
         ops += 2 * int(nz.sum()) * n
-        nbytes += w.numel() * 4 + int(nz.any(dim=0).sum()) * n * 4
+        nbytes += (w.numel() * 4
+                   + int(nz.any(dim=0).sum()) * n * m.element_size())
     if filter_rows is not None:
         nbytes += fidx.numel() * 4 + int(torch.unique(fidx).numel()) * n
     return ops, nbytes
@@ -380,11 +397,13 @@ def fused_work(w1, m1, deleted, k: int, w2=None, m2=None, filter_rows=None,
 
 def check_strip_kernel(seg, n1: int, shapes, k: int = K, t_pad: int = 4,
                        seed: int = 5, n_big: int = 1, tensors=None,
-                       special: bool = True):
+                       special: bool = True, bf16: bool = False):
     """The strip kernel vs its plain version on the card, per (rows,
     lanes[, k]) shape over seeded block tables of ``seg``. ``tensors``
     (block_docs, block_impacts, sentinels) are a real segment's own
-    tensors on the card, read in place of uploads of ``seg``'s arrays.
+    tensors on the card, read in place of uploads of ``seg``'s arrays;
+    ``bf16`` uploads the impacts rounded to bf16 (the bf16 variant, held
+    bit-identical to the plain version, which widens them).
     Returns a list of per-shape dicts; raises on any disagreement."""
     import torch
 
@@ -402,6 +421,9 @@ def check_strip_kernel(seg, n1: int, shapes, k: int = K, t_pad: int = 4,
         block_imps = torch.from_numpy(seg[1]).cuda()
         sent = torch.tensor([seg[0].shape[0] - 1, n1 - 1],
                             dtype=torch.int32, device="cuda")
+    if bf16:
+        block_imps = block_imps.to(torch.bfloat16)
+    variant = "strip_topk_bf16" if bf16 else "strip_topk"
     rows = []
     for B, L, *kk in shapes:
         kk = kk[0] if kk else k
@@ -418,7 +440,7 @@ def check_strip_kernel(seg, n1: int, shapes, k: int = K, t_pad: int = 4,
         torch.cuda.synchronize()
         ts, td, cnt = ts.cpu().numpy(), td.cpu().numpy(), cnt.cpu().numpy()
         ps, pd, pc = ps.cpu().numpy(), pd.cpu().numpy(), pc.cpu().numpy()
-        name = f"[{B}, {L}] t_pad={t_pad} k={kk}"
+        name = f"{variant} [{B}, {L}] t_pad={t_pad} k={kk}"
         fin = np.isfinite(ps)
         if not np.array_equal(np.isfinite(ts), fin):
             raise AssertionError(f"{name}: finite entries differ")
@@ -439,13 +461,14 @@ def check_strip_kernel(seg, n1: int, shapes, k: int = K, t_pad: int = 4,
         t_kern, t_plain = time_pair(
             lambda: strip_topk_blocks(*args, **kw),
             lambda: strip_topk_blocks_plain(*args, **kw), iters)
-        bms, by = bound_ms(*strip_work(bstart_np, bcnt_np, kk))
+        bms, by = bound_ms(*strip_work(bstart_np, bcnt_np, kk,
+                                       block_imps.element_size()))
         row = {"rows": B, "lanes": L, "k": kk, "t_pad": t_pad,
                "multi": multi, "bound_ms": bms, "bound_by": by,
                "max_abs_err": float(np.abs(ts[fin] - ps[fin]).max())
                if fin.any() else 0.0,
                "finite": int(fin.sum()), "ms": t_kern, "plain_ms": t_plain}
-        log(f"strip_topk {name}: bit-identical ({row['finite']} finite "
+        log(f"{name}: bit-identical ({row['finite']} finite "
             f"entries, counts equal, a doc in up to {multi} slots); kernel "
             f"{t_kern:.4f} ms, plain {t_plain:.4f} ms, bound {bms:.4f} ms "
             f"({by})")
@@ -454,11 +477,13 @@ def check_strip_kernel(seg, n1: int, shapes, k: int = K, t_pad: int = 4,
     return rows
 
 
-def check_lanes_kernel(seg, n1: int, shapes, seed: int = 12):
+def check_lanes_kernel(seg, n1: int, shapes, seed: int = 12,
+                       bf16: bool = False):
     """The strip kernel's all-lanes pass (``strip_lanes_blocks``) vs its
     plain version on the card: the same kept (doc, score) set bit for
     bit and the same counts, per [rows, lanes] shape over seeded block
-    tables of ``seg``. Returns per-shape dicts; raises on disagreement."""
+    tables of ``seg`` (``bf16``: the impacts rounded to bf16). Returns
+    per-shape dicts; raises on disagreement."""
     import torch
 
     from searchlite_tpu_torch.ops.strip_topk import (
@@ -469,6 +494,9 @@ def check_lanes_kernel(seg, n1: int, shapes, seed: int = 12):
     rng = np.random.default_rng(seed)
     block_docs = torch.from_numpy(seg[0]).cuda()
     block_imps = torch.from_numpy(seg[1]).cuda()
+    if bf16:
+        block_imps = block_imps.to(torch.bfloat16)
+    variant = "strip_lanes_bf16" if bf16 else "strip_lanes"
     sent = torch.tensor([seg[0].shape[0] - 1, n1 - 1], dtype=torch.int32,
                         device="cuda")
     rows = []
@@ -484,9 +512,9 @@ def check_lanes_kernel(seg, n1: int, shapes, seed: int = 12):
         torch.cuda.synchronize()
         ks, kd, kc = ks.cpu().numpy(), kd.cpu().numpy(), kc.cpu().numpy()
         ps, pd, pc = ps.cpu().numpy(), pd.cpu().numpy(), pc.cpu().numpy()
-        name = f"[{B}, {L}]"
+        name = f"{variant} [{B}, {L}]"
         if not np.array_equal(kc, pc):
-            raise AssertionError(f"strip_lanes {name}: counts differ")
+            raise AssertionError(f"{name}: counts differ")
         for b in range(B):
             got = {int(d): int(x) for d, x in zip(
                 kd[b][np.isfinite(ks[b])], ks[b][np.isfinite(ks[b])]
@@ -495,18 +523,19 @@ def check_lanes_kernel(seg, n1: int, shapes, seed: int = 12):
                 pd[b][np.isfinite(ps[b])], ps[b][np.isfinite(ps[b])]
                 .view(np.int32))}
             if got != want or len(got) != int(kc[b]):
-                raise AssertionError(f"strip_lanes {name}: the kept "
+                raise AssertionError(f"{name}: the kept "
                                      "(doc, score) sets differ")
         t_kern, t_plain = time_pair(lambda: strip_lanes_blocks(*args, **kw),
                                     lambda: strip_lanes_blocks_plain(*args,
                                                                      **kw),
                                     20)
         # the output: one 8-byte key a lane of the kernel's tiles
-        bms, by = bound_ms(*strip_work(bstart_np, bcnt_np, ks.shape[1]))
+        bms, by = bound_ms(*strip_work(bstart_np, bcnt_np, ks.shape[1],
+                                       block_imps.element_size()))
         row = {"rows": B, "lanes": L, "kept": int(kc.sum()), "ms": t_kern,
                "plain_ms": t_plain, "bound_ms": bms, "bound_by": by,
                "max_abs_err": 0.0}
-        log(f"strip_lanes {name}: {row['kept']} kept (doc, score) pairs "
+        log(f"{name}: {row['kept']} kept (doc, score) pairs "
             f"bit-identical, counts equal; kernel {t_kern:.4f} ms, plain "
             f"{t_plain:.4f} ms, bound {bms:.4f} ms ({by})")
         rows.append(row)
@@ -602,9 +631,10 @@ def check_fused_call(name, w1, m1, deleted, k: int, kw, n_false=None):
         lambda: fused_topk(w1, m1, deleted, k=k, **kw),
         lambda: fused_topk_plain(w1, m1, deleted, k=k, **kw), iters)
     # the library yardstick: one torch.matmul (TF32 off) of the score
-    # part over the concatenated operands; the port never calls it
+    # part over the concatenated operands, M widened to f32 (a bf16
+    # product would round to bf16); the port never calls it
     wcat = torch.cat([w1, w2], 1) if S else w1
-    mcat = torch.cat([m1, m2], 0) if S else m1
+    mcat = torch.cat([m1.float(), m2.float()], 0) if S else m1.float()
     t_lib = time_ms(lambda: torch.matmul(wcat, mcat), iters)
     del wcat, mcat
     bms, by = bound_ms(*fused_work(w1, m1, deleted, k, **kw))
@@ -612,7 +642,8 @@ def check_fused_call(name, w1, m1, deleted, k: int, kw, n_false=None):
            "max_abs_err": err, "finite": int(np.isfinite(ts).sum()),
            "ms": t_kern, "plain_ms": t_plain, "library_ms": t_lib,
            "bound_ms": bms, "bound_by": by}
-    log(f"fused_topk {name}: Wd [{Q}, {R}] Md [{R}, {N}]"
+    md = "bf16 " if m1.dtype == torch.bfloat16 else ""
+    log(f"fused_topk {name}: Wd [{Q}, {R}] {md}Md [{R}, {N}]"
         + (f" + Ws [{Q}, {S}] Ms [{S}, {N}]" if S else "")
         + (f", {nf} filter rows" if nf else "")
         + f", k={k}: agrees ({row['finite']} finite, max abs err "
@@ -621,9 +652,11 @@ def check_fused_call(name, w1, m1, deleted, k: int, kw, n_false=None):
     return row
 
 
-def check_fused_kernel(seed: int = 17):
-    """The fused kernel vs its plain version at FUSED_SHAPES. Returns a
-    list of per-shape dicts; raises on any disagreement."""
+def check_fused_kernel(seed: int = 17, bf16: bool = False):
+    """The fused kernel vs its plain version at FUSED_SHAPES; ``bf16``:
+    its bf16 variant, M1 (the dense rows) rounded to bf16 and W1 rounded
+    as the split scorer rounds it, M2 f32. Returns a list of per-shape
+    dicts; raises on any disagreement."""
     import torch
 
     g = torch.Generator(device="cuda")
@@ -631,6 +664,10 @@ def check_fused_kernel(seed: int = 17):
     rows = []
     for name, Q, R, S, N, k, nf in FUSED_SHAPES:
         w1, m1, deleted, kw = fused_inputs(g, Q, R, S, N, nf)
+        if bf16:
+            name = f"bf16 {name}"
+            w1 = w1.to(torch.bfloat16).float()
+            m1 = m1.to(torch.bfloat16)
         rows.append(check_fused_call(name, w1, m1, deleted, k, kw,
                                      n_false=nf - 1 if nf else None))
         del w1, m1, deleted, kw
@@ -708,16 +745,29 @@ def materialize(reader, arrays, n: int):
     return out
 
 
+# the kernels with f32 operands (phases a-h) and the bf16 variants (phase i)
+F32_KERNELS = ("strip_topk", "strip_lanes", "fused_topk")
+BF16_KERNELS = ("strip_topk_bf16", "strip_lanes_bf16", "fused_topk_bf16")
+
+
 class Counts:
-    """Every kernel wrapper's launch counts, reset and read together."""
+    """Every kernel wrapper's launch counts, reset and read together: per
+    kernel and operand type (the ``_bf16`` keys count launches on bf16
+    impacts or a bf16 M)."""
 
     def __init__(self):
         from searchlite_tpu_torch.ops import fused_topk, strip_topk
 
         self.counts = {"strip_topk": strip_topk.COUNTS,
                        "strip_lanes": strip_topk.LANES_COUNTS,
-                       "fused_topk": fused_topk.COUNTS}
+                       "fused_topk": fused_topk.COUNTS,
+                       "strip_topk_bf16": strip_topk.COUNTS_BF16,
+                       "strip_lanes_bf16": strip_topk.LANES_COUNTS_BF16,
+                       "fused_topk_bf16": fused_topk.COUNTS_BF16}
         self.gathers = strip_topk.GATHER_CALLS
+        # phase i sets it: elsewhere no table is bf16, so no bf16 variant
+        # may launch
+        self.bf16 = False
 
     def reset(self):
         for c in self.counts.values():
@@ -726,13 +776,17 @@ class Counts:
 
     def read(self):
         """(launches per kernel, plain-version calls); raises if the strip
-        was gathered on the card (the kernel reads blocks in place)."""
+        was gathered on the card (the kernel reads blocks in place), or
+        if a bf16 variant launched outside phase i."""
         if self.gathers.get("cuda"):
             raise AssertionError(
                 f"strip_gather ran {self.gathers.get('cuda')} time(s) on "
                 "CUDA tensors")
-        return ({n: c.launches for n, c in self.counts.items()},
-                sum(c.plain for c in self.counts.values()))
+        launches = {n: c.launches for n, c in self.counts.items()}
+        if not self.bf16 and any(launches[n] for n in BF16_KERNELS):
+            raise AssertionError(f"a bf16 variant launched outside the "
+                                 f"bf16 mode: {launches}")
+        return launches, sum(c.plain for c in self.counts.values())
 
 
 # phase e's fields: a keyword of N_CATS distinct values, a multi-valued
@@ -882,9 +936,11 @@ def run_stream(reader, counts):
     return launches, qps
 
 
-def verify_masked(reader, queries, filters, results, limit):
+def verify_masked(reader, queries, filters, results, limit, rtol=RTOL,
+                  atol=ATOL):
     """bench.verify_vs_oracle with each query's filter applied to the
-    oracle, plus the result count: min(limit, matching docs)."""
+    oracle (within ``rtol`` / ``atol``: the f32_strict gate by default),
+    plus the result count: min(limit, matching docs)."""
     import bench
     from searchlite_tpu_torch.api.types import Filter
     from searchlite_tpu_torch.query.filters import compute_filters_mask
@@ -904,7 +960,7 @@ def verify_masked(reader, queries, filters, results, limit):
         if filt is None and not bench.verify_vs_oracle(reader, [raw],
                                                        [got]):
             raise AssertionError(f"{raw!r} disagrees with the oracle")
-        tol = [ATOL + RTOL * abs(float(scores[int(d)])) for d, _ in got]
+        tol = [atol + rtol * abs(float(scores[int(d)])) for d, _ in got]
         if any(abs(s - float(scores[int(d)])) > t
                for (d, s), t in zip(got, tol)):
             raise AssertionError(f"{raw!r} ({filt}): a score disagrees "
@@ -914,7 +970,7 @@ def verify_masked(reader, queries, filters, results, limit):
             mask = np.ones(len(scores), dtype=bool)
             mask[np.asarray([int(d) for d, _ in got])] = False
             best_out = float(scores[mask].max()) if mask.any() else 0.0
-            if best_out > floor + ATOL + RTOL * abs(best_out):
+            if best_out > floor + atol + rtol * abs(best_out):
                 raise AssertionError(f"{raw!r} ({filt}): a better doc "
                                      "was left out")
 
@@ -2010,17 +2066,19 @@ MESH_SHARDS = 4
 
 
 class ShardCalls:
-    """Records the operands ``parallel/query.py`` hands one kernel wrapper
-    (``sparse_candidate_scorer_packed`` -- the strip kernel -- or
-    ``fused_topk``) over the first ``keep`` calls, and counts every call;
-    each call passes on unchanged."""
+    """Records the operands ``parallel/query.py`` (or ``module``) hands
+    one kernel wrapper (``sparse_candidate_scorer_packed`` -- the strip
+    kernel -- or ``fused_topk``; ``strip_topk_blocks`` in ``ops/sparse.py``)
+    over the first ``keep`` calls, and counts every call; each call passes
+    on unchanged."""
 
-    def __init__(self, name: str, keep: int):
-        from searchlite_tpu_torch.parallel import query as query_mod
+    def __init__(self, name: str, keep: int, module=None):
+        if module is None:
+            from searchlite_tpu_torch.parallel import query as module
 
-        self.module = query_mod
+        self.module = module
         self.name = name
-        self.real = getattr(query_mod, name)
+        self.real = getattr(module, name)
         self.keep = keep
         self.calls = []
         self.n = 0
@@ -2040,23 +2098,32 @@ class ShardCalls:
 
 
 def check_strip_call(name, args, kw):
-    """One recorded per-shard strip launch against the plain version on the
-    same operands: bit-identical on finite entries, ids and counts equal;
-    then timed beside it, with its bound. Returns the per-shape dict."""
+    """One recorded per-shard strip launch (the packed scorer's operands)
+    against the plain version: :func:`check_strip_blocks_call`."""
+    from searchlite_tpu_torch.ops.sparse import decode_packed
+
+    block_docs, block_imps, tid_tbl, packed, ovr, sent = args
+    bstart, bcnt, w = decode_packed(tid_tbl, packed, ovr,
+                                    n_ovr=kw["n_ovr"])
+    return check_strip_blocks_call(
+        name, (block_docs, block_imps, bstart.contiguous(),
+               bcnt.contiguous(), w.contiguous(), sent),
+        dict(k=kw["k"], nblk=kw["nblk"], log2_run=kw["log2_run"]))
+
+
+def check_strip_blocks_call(name, op, skw):
+    """One recorded strip launch (``strip_topk_blocks``' operands ``op``
+    and ``skw``) against the plain version on the same operands:
+    bit-identical on finite entries, ids and counts equal; then timed
+    beside it, with its bound. Returns the per-shape dict."""
     import torch
 
-    from searchlite_tpu_torch.ops.sparse import decode_packed
     from searchlite_tpu_torch.ops.strip_topk import (
         strip_topk_blocks,
         strip_topk_blocks_plain,
     )
 
-    block_docs, block_imps, tid_tbl, packed, ovr, sent = args
-    bstart, bcnt, w = decode_packed(tid_tbl, packed, ovr,
-                                    n_ovr=kw["n_ovr"])
-    op = (block_docs, block_imps, bstart.contiguous(), bcnt.contiguous(),
-          w.contiguous(), sent)
-    skw = dict(k=kw["k"], nblk=kw["nblk"], log2_run=kw["log2_run"])
+    block_docs, block_imps, bstart, bcnt, _w, _sent = op
     ts, td, cnt = strip_topk_blocks(*op, with_counts=True, **skw)
     ps, pd, pc = strip_topk_blocks_plain(*op, **skw)
     torch.cuda.synchronize()
@@ -2074,15 +2141,16 @@ def check_strip_call(name, args, kw):
                                 lambda: strip_topk_blocks_plain(*op, **skw),
                                 20)
     bstart_np, bcnt_np = bstart.cpu().numpy(), bcnt.cpu().numpy()
-    bms, by = bound_ms(*strip_work(bstart_np, bcnt_np, kw["k"]))
+    bms, by = bound_ms(*strip_work(bstart_np, bcnt_np, skw["k"],
+                                   block_imps.element_size()))
     row = {"name": name, "rows": int(bstart.shape[0]),
-           "lanes": kw["nblk"] * 128, "k": kw["k"],
+           "lanes": skw["nblk"] * 128, "k": skw["k"],
            "block_rows": int(block_docs.shape[0]), "finite": int(fin.sum()),
            "max_abs_err": float(np.abs(ts[fin] - ps[fin]).max())
            if fin.any() else 0.0, "ms": t_kern, "plain_ms": t_plain,
            "bound_ms": bms, "bound_by": by}
-    log(f"strip_topk {name}: [{row['rows']}, {row['lanes']}] over a "
-        f"shard's {row['block_rows']} block rows, k={kw['k']}: "
+    log(f"strip_topk {name}: [{row['rows']}, {row['lanes']}] over "
+        f"{row['block_rows']} {block_imps.dtype} block rows, k={skw['k']}: "
         f"bit-identical ({row['finite']} finite, counts equal); kernel "
         f"{t_kern:.4f} ms, plain {t_plain:.4f} ms, bound {bms:.4f} ms "
         f"({by}) on {card_line()}")
@@ -2344,6 +2412,319 @@ def run_mesh(reader, counts, vectors, mesh):
             "(in turns one device, mesh, mesh, one device; information, "
             "not a benchmark)")
     return launches, strip_rows, fused_rows
+
+
+# -- phase i: the bf16 precision mode -----------------------------------------
+
+BF16_RTOL, BF16_ATOL = 2e-2, 1e-3  # bench.py's bf16 gate
+# tests/test_impacts_dtype.py: bf16 storage against exact f32, per score
+EXACT_RTOL, EXACT_ATOL = 2.0 ** -7, 1e-4
+# docs of a row that may trade places at a near-tie anywhere in the row;
+# past it, only docs at the row's cut may (bf16 rounds the impacts of
+# docs of nearby lengths to one value: at 100,000 docs 4 of the stream's
+# 3,072 rows swap 3 docs there)
+MAX_SWAPS = 2
+
+
+def near(score: float, ref: float) -> bool:
+    return abs(score - ref) <= EXACT_ATOL + EXACT_RTOL * abs(ref)
+
+
+def close_to_exact(exact, got, what: str, reader, queries) -> tuple:
+    """bf16 answers (per query a [(doc, score)] list) against the exact
+    reader's: as many hits, every common doc's score within ``EXACT_ATOL +
+    EXACT_RTOL`` of the exact one, and the docs not in the other's answer
+    near-ties: at most ``MAX_SWAPS`` a row, or any number when each such
+    doc's exact score (the f64 oracle's for a doc the exact answer left
+    out) is within the same tolerance of the exact row's last score.
+    Returns (docs swapped over all rows, the most in one row)."""
+    import bench
+
+    swapped = most = 0
+    for qi, (e, g) in enumerate(zip(exact, got, strict=True)):
+        if len(e) != len(g):
+            raise AssertionError(f"{what} q{qi}: {len(g)} hits, exact "
+                                 f"{len(e)}")
+        want, have = dict(e), dict(g)
+        common = set(want) & set(have)
+        n_out = len(want) - len(common)
+        swapped += n_out
+        most = max(most, n_out)
+        if n_out > MAX_SWAPS:
+            cut = min(want.values())
+            oracle = bench._oracle_scores(reader, queries[qi])
+            scores = [want[d] for d in set(want) - common] + [
+                float(oracle[int(d)]) for d in set(have) - common]
+            if not all(near(s, cut) for s in scores):
+                raise AssertionError(f"{what} q{qi}: {n_out} docs differ "
+                                     "from the exact answer, not all at "
+                                     f"its cut {cut}: {scores}")
+        for d in common:
+            if not near(have[d], want[d]):
+                raise AssertionError(f"{what} q{qi}: doc {d} scores "
+                                     f"{have[d]}, exact {want[d]}")
+    return swapped, most
+
+
+def resident_bytes(dseg) -> dict:
+    """Bytes of a segment's impact tables on the card: ``block_impacts``,
+    the flat postings (docs + impacts) and the resident dense rows at the
+    default 2 GiB budget (built here if not yet), with the rows' count."""
+    budget = int(os.environ.get("SEARCHLITE_DENSE_M_BYTES", 2 * 1024 ** 3))
+    dense = dseg.dense_rows(budget)["m_dense"]
+    flat = dseg.flat_postings()
+
+    def size(t):
+        return t.numel() * t.element_size()
+
+    return {"block_impacts": size(dseg.block_impacts),
+            "flat_postings": sum(size(t) for t in flat.values()),
+            "m_dense": size(dense), "m_dense_rows": int(dense.shape[0]),
+            "dtypes": [str(dseg.block_impacts.dtype),
+                       str(flat["impacts_flat"].dtype), str(dense.dtype)]}
+
+
+def run_bf16(index, exact_reader, counts, base, mesh):
+    """Phase i: phase a's index reopened under ``SEARCHLITE_PRECISION=bf16``
+    (a fresh ``cached_segment`` entry: the impact dtype is part of its
+    key), at phase a's widths: the b1024 x3 stream, b256, filtered b256, b32
+    at k = 2,000, the filtered b1024 over the budget (the scan), the 9
+    default singles and the sparse singles, the wand stream and the b1024
+    stream over ``mesh``. Every answer passes bench.py's bf16 gate (rtol
+    2e-2, atol 1e-3) against the f64 oracle and is within 2^-7 of the
+    exact reader's (phase a's, f32 tables) on common docs, the docs
+    swapped near-ties (:func:`close_to_exact`); the stream and the under-budget batches launch what phase
+    a and b launched, as bf16 variants; no strip is gathered; both bf16
+    variants are held against their plain versions on the first launch's
+    operands; the tables' resident bytes are printed beside phase a's.
+    ``base`` holds phases a and b's launches. Returns (launches, strip
+    rows, fused rows)."""
+    import torch
+
+    import bench
+    from searchlite_tpu_torch.ops import impact, sparse
+
+    batches = bench.build_queries()
+    stream = batches[1:]
+    first = stream[0]
+    b256 = first[:256]
+    filters256 = [FILTERS[i % len(FILTERS)] for i in range(len(b256))]
+    filters1024 = [FILTERS[i % len(FILTERS)] for i in range(len(first))]
+    singles = batches[0][:9]
+    sparse_qs = batches[0][9:73] + split_queries()
+    budget_phases = [("b256", b256, None, K),
+                     ("b256 filtered", b256, filters256, K),
+                     ("b32 k=2000", b256[:32], None, 2000)]
+
+    def stream_pairs(reader, out):
+        return [p for arr, qs in zip(out, stream)
+                for p in materialize(reader, arr, len(qs))]
+
+    def sparse_answers(reader):
+        with env_set(SEARCHLITE_SINGLE_SPARSE_MIN_DOCS=0):
+            return [hit_pairs(reader.search({"query": q, "limit": K}))
+                    for q in sparse_qs]
+
+    # the exact answers: phase a's reader, f32 tables, f32_strict (the
+    # dense rows' dtype is read from the mode at each build)
+    t0 = time.perf_counter()
+    exact = {
+        "stream": stream_pairs(exact_reader, exact_reader.search_batch_many(
+            stream, limit=K, output="arrays")),
+        "wand": stream_pairs(exact_reader, exact_reader.search_batch_many(
+            stream, limit=K, output="arrays", execution="wand")),
+        "scan": exact_reader.search_batch(first, limit=K,
+                                          filters=filters1024),
+        "singles": [hit_pairs(exact_reader.search({"query": q, "limit": K}))
+                    for q in singles],
+        "sparse": sparse_answers(exact_reader)}
+    for name, qs, fs, limit in budget_phases:
+        exact[name] = exact_reader.search_batch(qs, limit=limit, filters=fs)
+    exact_bytes = resident_bytes(exact_reader.device_segments[0])
+    log(f"bf16: exact answers in {time.perf_counter() - t0:.1f} s")
+
+    total = {key: 0 for key in F32_KERNELS + BF16_KERNELS}
+    checked = {"strip": [], "fused": []}
+
+    def counted(name, fn, want=None):
+        """Run ``fn`` with the counts reset, add its launches, check no
+        plain version ran (and ``want``: {kernel: launches})."""
+        counts.reset()
+        out = fn()
+        torch.cuda.synchronize()
+        launches, plain = counts.read()
+        if plain != 0:
+            raise AssertionError(f"bf16 {name}: a plain version ran")
+        for key in total:
+            total[key] += launches[key]
+        if want is not None and any(launches[k] != v
+                                    for k, v in want.items()):
+            raise AssertionError(f"bf16 {name}: launches {launches}, "
+                                 f"expected {want}")
+        log(f"bf16 {name}: launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        return out, launches
+
+    def gate(name, queries, results, filters=None, limit=K):
+        verify_masked(reader, queries, filters or [None] * len(queries),
+                      results, limit, rtol=BF16_RTOL, atol=BF16_ATOL)
+        swaps, most = close_to_exact(exact[name], results, name, reader,
+                                     queries)
+        log(f"bf16 {name}: {len(queries)} queries within bench.py's bf16 "
+            f"gate of the oracle and within 2^-7 of the exact answers "
+            f"({swaps} docs swapped at near-ties, at most {most} a row)")
+
+    with env_set(SEARCHLITE_PRECISION="bf16"):
+        counts.bf16 = True
+        t0 = time.perf_counter()
+        reader = index.reader()  # a fresh cached_segment entry
+        dseg = reader.device_segments[0]
+        log(f"bf16: reader open + upload {time.perf_counter() - t0:.1f} s")
+        if dseg is exact_reader.device_segments[0] \
+                or dseg.block_impacts.dtype != torch.bfloat16:
+            raise AssertionError("bf16: the reader did not get bf16 tables")
+        got_bytes = resident_bytes(dseg)
+        log(f"bf16 resident bytes on {card_line()}: {got_bytes}; exact "
+            f"(phase a): {exact_bytes}")
+        # half the bytes a row (6 of 8 a flat posting); a budget holds up
+        # to twice the dense rows
+        if got_bytes["block_impacts"] * 2 != exact_bytes["block_impacts"] \
+                or got_bytes["flat_postings"] * 8 \
+                != exact_bytes["flat_postings"] * 6 \
+                or got_bytes["m_dense_rows"] < exact_bytes["m_dense_rows"] \
+                or got_bytes["m_dense"] * 2 * exact_bytes["m_dense_rows"] \
+                != exact_bytes["m_dense"] * got_bytes["m_dense_rows"]:
+            raise AssertionError("bf16: the tables are not half the bytes "
+                                 "(6/8 for the flat postings)")
+
+        # the b1024 x3 stream, then the first batch in pairs form: what
+        # phase a launched, on bf16 impacts
+        reader.search_batch_many(stream, limit=K, output="arrays")  # warm
+        with ShardCalls("strip_topk_blocks", 1, module=sparse) as strips:
+            (arr_out, pairs), _ = counted(
+                "b1024 x3 stream", lambda: (
+                    reader.search_batch_many(stream, limit=K,
+                                             output="arrays"),
+                    reader.search_batch(first, limit=K)),
+                want={"strip_topk_bf16": base["stream"]["strip_topk"],
+                      "strip_topk": 0, "fused_topk": 0,
+                      "fused_topk_bf16": base["stream"]["fused_topk"]})
+        gate("stream", [q for b in stream for q in b],
+             stream_pairs(reader, arr_out))
+        verify_masked(reader, first, [None] * len(first), pairs, K,
+                      rtol=BF16_RTOL, atol=BF16_ATOL)
+        args, kw = strips.calls[0]
+        checked["strip"].append(check_strip_blocks_call(
+            "bf16 stream, first launch", args,
+            {key: kw[key] for key in ("k", "nblk", "log2_run")}))
+
+        # the under-budget batches: the split scorer, bf16 m_dense through
+        # the fused kernel (a term-split row's fallback follows its
+        # scores, so the launches may differ from phase b's by one)
+        for name, qs, fs, limit in budget_phases:
+            reader.search_batch(qs, limit=limit, filters=fs)  # warm
+            with ShardCalls("fused_topk", 1, module=impact) as fused:
+                got, launches = counted(name, lambda: reader.search_batch(
+                    qs, limit=limit, filters=fs))
+            log(f"bf16 {name}: phase b launched {base['budget'][name]}")
+            if launches["strip_topk"] or launches["fused_topk"] or (
+                    base["budget"][name]["fused_topk"] and not fused.calls):
+                raise AssertionError(f"bf16 {name}: an f32 variant ran, or "
+                                     "no fused launch")
+            gate(name, qs, got, fs, limit)
+            for a, kw in fused.calls:
+                kw = dict(kw)
+                k = kw.pop("k")
+                if a[1].dtype != torch.bfloat16:
+                    raise AssertionError(f"bf16 {name}: m_dense is "
+                                         f"{a[1].dtype}")
+                checked["fused"].append(check_fused_call(
+                    f"bf16 {name}, first launch", *a, k,
+                    {key: v for key, v in kw.items() if v is not None}))
+
+        # the filtered b1024 over the budget: the scan over bf16 shard
+        # tables (each shard's M is f32: the f32 fused kernel)
+        reader.search_batch(first, limit=K, filters=filters1024)  # warm
+        before = reader.route_rows["sharded"]
+        got, launches = counted("scan", lambda: reader.search_batch(
+            first, limit=K, filters=filters1024))
+        shards = dseg._shared["doc_shards"]
+        if reader.route_rows["sharded"] - before != len(first) \
+                or shards["block_impacts"].dtype != torch.bfloat16 \
+                or launches["fused_topk"] <= 0:
+            raise AssertionError("bf16 scan: not the scan over bf16 shards")
+        gate("scan", first, got, filters1024)
+
+        # the 9 default singles and the sparse singles
+        for q in singles:
+            reader.search({"query": q, "limit": K})  # warm
+        got, _ = counted("singles", lambda: [
+            hit_pairs(reader.search({"query": q, "limit": K}))
+            for q in singles])
+        gate("singles", singles, got)
+        sparse_answers(reader)  # warm
+        got, launches = counted("sparse singles",
+                                lambda: sparse_answers(reader))
+        if launches["strip_topk_bf16"] <= 0 \
+                or launches["strip_lanes_bf16"] <= 0:
+            raise AssertionError("bf16 sparse singles: a strip pass is "
+                                 "missing")
+        gate("sparse", sparse_qs, got)
+
+        # one wand stream: light rows on the strips, tile waves over the
+        # bf16 flat postings
+        reader.search_batch_many(stream, limit=K, output="arrays",
+                                 execution="wand")  # warm
+        got, launches = counted("wand stream", lambda: stream_pairs(
+            reader, reader.search_batch_many(stream, limit=K,
+                                             output="arrays",
+                                             execution="wand")))
+        if launches["strip_topk_bf16"] <= 0:
+            raise AssertionError("bf16 wand: no strip launch")
+        gate("wand", [q for b in stream for q in b], got)
+
+        # the b1024 stream over the mesh: bf16 mesh tables
+        reader.search_batch_many(stream, limit=K, output="arrays",
+                                 mesh=mesh)  # warm
+        got, launches = counted("mesh stream", lambda: stream_pairs(
+            reader, reader.search_batch_many(stream, limit=K,
+                                             output="arrays", mesh=mesh)))
+        if any(t.dtype != torch.bfloat16
+               for t in dseg._mesh_sparse["block_impacts"]) \
+                or launches["strip_topk_bf16"] <= 0 \
+                or launches["strip_topk_bf16"] % mesh.shape["shard"]:
+            raise AssertionError("bf16 mesh: not the strips over bf16 "
+                                 "shard tables")
+        gate("stream", [q for b in stream for q in b], got)
+
+        # the exact and the bf16 reader timed in turns (information)
+        times = {"exact": {"stream": [], "b256 filtered": []},
+                 "bf16": {"stream": [], "b256 filtered": []}}
+        for which in ("exact", "bf16", "bf16", "exact"):
+            r = exact_reader if which == "exact" else reader
+            mode = "f32_strict" if which == "exact" else "bf16"
+            with env_set(SEARCHLITE_PRECISION=mode):
+                for name, fn in (
+                        ("stream", lambda: r.search_batch_many(
+                            stream, limit=K, output="arrays")),
+                        ("b256 filtered", lambda: r.search_batch(
+                            b256, limit=K, filters=filters256))):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    times[which][name].append(
+                        (time.perf_counter() - t0) * 1000)
+        for which, t in times.items():
+            log(f"bf16 timing, {which} reader: b1024 x3 stream "
+                f"{[round(x, 2) for x in t['stream']]} ms, b256 filtered "
+                f"{[round(x, 2) for x in t['b256 filtered']]} ms on "
+                f"{card_line()} (in turns exact, bf16, bf16, exact; "
+                "information, not a benchmark)")
+        counts.bf16 = False
+    log(f"bf16: every phase-i answer passes the bf16 gate and is within "
+        f"2^-7 of the exact reader's; launches {total}")
+    return total, checked["strip"], checked["fused"]
 
 
 # -- phase f: a live index ---------------------------------------------------
@@ -3131,6 +3512,10 @@ def main() -> int:
         raise AssertionError("no strip row held a doc in 4 slots")
     lanes_rows = check_lanes_kernel(seg, N1, LANES_SHAPES)
     fused_rows = check_fused_kernel()
+    # the bf16 variants at the same shapes (phase i's main path)
+    stream_rows_bf16 = check_strip_kernel(seg, N1, STREAM_SHAPES, bf16=True)
+    lanes_rows_bf16 = check_lanes_kernel(seg, N1, LANES_SHAPES, bf16=True)
+    fused_rows_bf16 = check_fused_kernel(bf16=True)
 
     index, vectors = build_index()
     t1 = time.perf_counter()
@@ -3143,8 +3528,8 @@ def main() -> int:
     stream_launches, qps = run_stream(reader, counts)
     log(f"stream QPS {qps:.1f} on {card_line()} (information, not a "
         "benchmark)")
-    budget_launches, records = run_under_budget(reader, counts)
-    for rec in records:
+    budget_launches, budget_records = run_under_budget(reader, counts)
+    for rec in budget_records:
         log(f"under-budget {rec['name']}: {rec['ms']:.2f} ms on "
             f"{card_line()} (information, not a benchmark)")
     single_launches, _p50 = run_singles(reader, counts)
@@ -3172,6 +3557,11 @@ def main() -> int:
             mesh_launches[key] += launches_h[key]
         strip_rows += mesh_strip_rows
         fused_rows += mesh_fused_rows
+    bf16_launches, bf16_strip_rows, bf16_fused_rows = run_bf16(
+        index, reader, counts,
+        {"stream": stream_launches,
+         "budget": {r["name"]: r["launches"] for r in budget_records}},
+        meshes[0])
     del vectors
     live_launches, clone_strip_rows, clone_fused_rows = run_live_index(
         index, reader, counts,
@@ -3188,11 +3578,14 @@ def main() -> int:
                        + sharded_launches[k] + agg_launches[k]
                        + vector_launches[k] + mesh_launches[k]
                        + live_launches[k] + surface_launches[k]
-                       for k in single_launches}
+                       + bf16_launches[k]
+                       for k in F32_KERNELS}
     for blocked in ("jax", "searchlite_tpu"):
         if sys.modules.get(blocked) is not None:
             raise AssertionError(f"{blocked} was imported")
     main_fused = next(r for r in fused_rows if r["name"] == "b256 filtered")
+    main_fused_bf16 = next(r for r in fused_rows_bf16
+                           if r["name"] == "bf16 b256 filtered")
     kernels = [{
         "name": "strip_topk",
         "route": "cuda",
@@ -3235,7 +3628,55 @@ def main() -> int:
         "bound_ms": main_fused["bound_ms"],
         "bound_by": main_fused["bound_by"],
         "library_ms": main_fused["library_ms"],
+    }, {
+        # the bf16 variants (SEARCHLITE_PRECISION=bf16): phase i's
+        # launches, timed at the f32 rows' shapes, bounds from the bytes
+        # the bf16 calls read
+        "name": "strip_topk_bf16",
+        "route": "cuda",
+        "source": "searchlite_tpu_torch/csrc/strip_topk.cu",
+        "replaces": "searchlite_tpu/ops/pallas_strip.py:157",
+        "launches": bf16_launches["strip_topk_bf16"],
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in stream_rows_bf16 + bf16_strip_rows),
+        "ms": sum(r["ms"] for r in stream_rows_bf16),
+        "plain_ms": sum(r["plain_ms"] for r in stream_rows_bf16),
+        "bound_ms": sum(r["bound_ms"] for r in stream_rows_bf16),
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes"
+                                   for r in stream_rows_bf16)
+        else "operations",
+        "library_ms": None,  # no single PyTorch call computes it
+    }, {
+        "name": "strip_lanes_bf16",
+        "route": "cuda",
+        "source": "searchlite_tpu_torch/csrc/strip_topk.cu",
+        "replaces": "searchlite_tpu/ops/pallas_strip.py:157",
+        "launches": bf16_launches["strip_lanes_bf16"],
+        "max_abs_err": 0.0,
+        "ms": lanes_rows_bf16[-1]["ms"],
+        "plain_ms": lanes_rows_bf16[-1]["plain_ms"],
+        "bound_ms": lanes_rows_bf16[-1]["bound_ms"],
+        "bound_by": lanes_rows_bf16[-1]["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes it
+    }, {
+        "name": "fused_topk_bf16",
+        "route": "cuda",
+        "source": "searchlite_tpu_torch/csrc/fused_topk.cu",
+        "replaces": "searchlite_tpu/ops/pallas_topk.py:32",
+        "launches": bf16_launches["fused_topk_bf16"],
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in fused_rows_bf16 + bf16_fused_rows),
+        # the filtered b256 shape, M1 (the dense rows) in bf16
+        "ms": main_fused_bf16["ms"],
+        "plain_ms": main_fused_bf16["plain_ms"],
+        "bound_ms": main_fused_bf16["bound_ms"],
+        "bound_by": main_fused_bf16["bound_by"],
+        "library_ms": main_fused_bf16["library_ms"],
     }]
+    for row in kernels:
+        if row["launches"] <= 0:
+            raise AssertionError(f"{row['name']}: no launch on the main "
+                                 "paths")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -127,7 +127,18 @@ past int32 indexing, the one-device dense scorers. Every launch is
 enqueued before the one copy back a device.
 
 Every route is exact, so results match the JAX reader whichever route it
-took (scores to f32 reassociation, divergence D10).
+took (scores to f32 reassociation, divergence D10). Under
+``SEARCHLITE_PRECISION=bf16`` (or ``SEARCHLITE_DEVICE_IMPACTS=bf16``) the
+segments' impact tables and dense rows store bf16 (``ops/precision.py``):
+the routes are the same, and the scores are those of the bf16-rounded
+impacts, as the JAX reader's in the same mode.
+
+``SEARCHLITE_HOST_PROFILE`` (set to anything) makes
+``search_batch_many`` accumulate its host phases on the reader, as the JAX
+reader does: ``_host_profile`` holds wall seconds of ``prep`` (query
+prep), ``dispatch`` (routing and enqueue), ``fetch`` (the copy back),
+``fallback`` (term-split fallbacks), ``merge`` (host merge) and the
+``batches`` counted; without the variable there is no such attribute.
 """
 
 from __future__ import annotations
@@ -165,8 +176,8 @@ from searchlite_tpu_torch.ops.device_aggs import (
     build_intermediates,
     launch_device_aggs,
     plan_device_aggs,
-    strict as precision_strict,
 )
+from searchlite_tpu_torch.ops.precision import strict as precision_strict
 from searchlite_tpu_torch.ops.score import CompiledQuery
 from searchlite_tpu_torch.ops.vector import vector_topk, vector_topk_sharded
 from searchlite_tpu_torch.parallel.query import (
@@ -2768,6 +2779,18 @@ class IndexReader:
         m_budget = int(os.environ.get("SEARCHLITE_M_BUDGET_BYTES",
                                       2 * 1024**3))
 
+        # opt-in host-phase accounting (SEARCHLITE_HOST_PROFILE set, JAX
+        # reader.py:2362-2372): wall seconds per phase accumulated on the
+        # reader, and the batches counted; unset, nothing is timed
+        prof = None
+        if os.environ.get("SEARCHLITE_HOST_PROFILE"):
+            prof = getattr(self, "_host_profile", None)
+            if prof is None:
+                prof = self._host_profile = {
+                    "prep": 0.0, "dispatch": 0.0, "fetch": 0.0,
+                    "fallback": 0.0, "merge": 0.0, "batches": 0}
+            prof["batches"] += len(batches)
+
         # phase 1: prep + enqueue every batch and segment
         analyzed_box = [None]  # Python analysis only if native rejects
         launches = []  # per batch: [(seg_ord, scores, ids)]
@@ -2780,8 +2803,13 @@ class IndexReader:
                 seg = dseg.reader
                 if seg.doc_count == 0:
                     continue
+                if prof is not None:
+                    t_prep = time.perf_counter()
                 qb = self._qb_lazy_native(seg, dseg, batches, bi, fields,
                                           analyzed_box)
+                if prof is not None:
+                    t_disp = time.perf_counter()
+                    prof["prep"] += t_disp - t_prep
                 k = min(k_batch, dseg.n1)
                 pend: list = []
                 est_bytes = (qb["s_pad"] + len(queries)) * dseg.n1 * 4
@@ -2802,19 +2830,29 @@ class IndexReader:
                     rec["li"] = len(launched)
                     pending_recs.append(rec)
                 launched.append((dseg.ord, scores, ids))
+                if prof is not None:
+                    prof["dispatch"] += time.perf_counter() - t_disp
             launches.append(launched)
 
         # phase 2: ONE device-to-host copy for every batch and segment,
         # the term-split soundness flags riding along
+        if prof is not None:
+            t_fetch = time.perf_counter()
         flat = [t for launched in launches for _o, s, i in launched
                 for t in (s, i)]
         n_main = len(flat)
         flat += [rec["sound"].to(torch.int32) for rec in pending_recs]
         host = _fetch(flat)
+        if prof is not None:
+            t_fb = time.perf_counter()
+            prof["fetch"] += t_fb - t_fetch
         if pending_recs:
             self._apply_split_fallbacks(launches, host, n_main,
                                         pending_recs)
             del host[n_main:]
+        if prof is not None:
+            t_merge = time.perf_counter()
+            prof["fallback"] += t_merge - t_fb
 
         # phase 3: host merge per batch
         out = []
@@ -2827,6 +2865,8 @@ class IndexReader:
                 cursor += 2
             out.append(self._merge_batch_output(
                 queries, per_segment, blimits, output, limit))
+        if prof is not None:
+            prof["merge"] += time.perf_counter() - t_merge
         return out
 
     # -- batching helpers ---------------------------------------------------

@@ -45,7 +45,20 @@
 //
 // Phase 4 (topk_merge.cuh, shared with strip_topk.cu, unchanged): one
 // block a row sorts its k keys and decodes them.
+//
+// M1 and M2 each in f32 or bf16 (SEARCHLITE_PRECISION=bf16 stores the
+// resident dense rows, M1 of the split scorer, in bf16 beside an f32 M2):
+// the score kernel is templated on both types and on the lane's group of
+// G consecutive docs. With two f32 operands G = 4 (one float4 a group, the
+// f32 kernel as it was); with a bf16 operand G = 8, so a bf16 row is read
+// as one 16-byte load of 8 docs (an f32 row beside it as two float4). Each
+// bf16 element is widened to f32 where it is loaded (exact) and the sums
+// run in f32 as before: W is bf16-rounded by the caller, so every product
+// is exact in f32 and only the order of the sums differs from plain (D10).
+// The 16-byte path needs N % G == 0 and 16-byte-aligned bases (the scan's
+// shards have odd N); otherwise every element is loaded on its own.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -59,7 +72,7 @@ using topk_merge::pad_key;
 
 constexpr int kChunk = 1024;              // docs per (query, chunk)
 constexpr int kPass = 512;                // docs per pass of one warp
-constexpr int kDocsPerLane = kPass / 32;  // 16: four float4 groups
+constexpr int kDocsPerLane = kPass / 32;  // 16: kDocsPerLane / G groups
 constexpr int kWarps = 8;                 // queries per score block
 constexpr int kScoreThreads = kWarps * 32;
 constexpr int kListThreads = 256;
@@ -131,25 +144,69 @@ row_lists_kernel(const float* __restrict__ w1, int K1,
   if (tid == 0) counts[op * Q + q] = base;
 }
 
-// The lane's 16 docs of one M row: four groups of 4 consecutive docs at
-// nb + 128 * g. Docs past N read as 0 (they are masked).
-template <bool kVec>
-__device__ __forceinline__ void load_row(const float* __restrict__ row, int N,
+// One element of M, widened to f32.
+__device__ __forceinline__ float load_m(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_m(const __nv_bfloat16* p) {
+  return __bfloat162float(
+      __ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p))));
+}
+
+// A 32-bit word of two bf16, widened: the element at the lower address is
+// the low half (little-endian); a bf16 is the high 16 bits of its f32.
+__device__ __forceinline__ void widen2(unsigned int u, float* x) {
+  x[0] = __uint_as_float(u << 16);
+  x[1] = __uint_as_float(u & 0xffff0000u);
+}
+
+// G consecutive elements of a row at p, 16-byte loads (kVec: p aligned to
+// G elements of 4 bytes, or to 16 bytes for G = 8 bf16; 8 bytes for G = 4
+// bf16).
+template <int G>
+__device__ __forceinline__ void load_vec(const float* p, float* x) {
+#pragma unroll
+  for (int h = 0; h < G / 4; ++h) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p) + h);
+    x[4 * h] = v.x;
+    x[4 * h + 1] = v.y;
+    x[4 * h + 2] = v.z;
+    x[4 * h + 3] = v.w;
+  }
+}
+template <int G>
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* x) {
+  if (G == 8) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+    widen2(v.x, x);
+    widen2(v.y, x + 2);
+    widen2(v.z, x + 4);
+    widen2(v.w, x + 6);
+  } else {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    widen2(v.x, x);
+    widen2(v.y, x + 2);
+  }
+}
+
+// The lane's 16 docs of one M row: kDocsPerLane / G groups of G
+// consecutive docs, group g at nb + 32 * G * g (nb = the pass's first doc
+// + G * lane). Docs past N read as 0 (they are masked).
+template <typename T, int G, bool kVec>
+__device__ __forceinline__ void load_row(const T* __restrict__ row, int N,
                                          int nb, float (&x)[kDocsPerLane]) {
 #pragma unroll
-  for (int g = 0; g < 4; ++g) {
-    const int n = nb + 128 * g;
+  for (int g = 0; g < kDocsPerLane / G; ++g) {
+    const int n = nb + 32 * G * g;
     if (kVec) {
-      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (n < N) v = __ldg(reinterpret_cast<const float4*>(row + n));
-      x[4 * g] = v.x;
-      x[4 * g + 1] = v.y;
-      x[4 * g + 2] = v.z;
-      x[4 * g + 3] = v.w;
+      if (n < N) {
+        load_vec<G>(row + n, x + G * g);
+      } else {
+#pragma unroll
+        for (int e = 0; e < G; ++e) x[G * g + e] = 0.0f;
+      }
     } else {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        x[4 * g + e] = n + e < N ? __ldg(row + n + e) : 0.0f;
+      for (int e = 0; e < G; ++e) {
+        x[G * g + e] = n + e < N ? load_m(row + n + e) : 0.0f;
       }
     }
   }
@@ -157,8 +214,8 @@ __device__ __forceinline__ void load_row(const float* __restrict__ row, int N,
 
 // acc += sum over the query's listed rows, ascending, one fmaf per row.
 // Two rows are loaded before either is added, so their loads overlap.
-template <bool kVec>
-__device__ __forceinline__ void accumulate(const float* __restrict__ m,
+template <typename T, int G, bool kVec>
+__device__ __forceinline__ void accumulate(const T* __restrict__ m,
                                            const int2* __restrict__ lst,
                                            int c, int N, int nb,
                                            float (&acc)[kDocsPerLane]) {
@@ -168,8 +225,8 @@ __device__ __forceinline__ void accumulate(const float* __restrict__ m,
     const int2 e1 = lst[i + 1];
     float a[kDocsPerLane];
     float b[kDocsPerLane];
-    load_row<kVec>(m + static_cast<size_t>(e0.x) * N, N, nb, a);
-    load_row<kVec>(m + static_cast<size_t>(e1.x) * N, N, nb, b);
+    load_row<T, G, kVec>(m + static_cast<size_t>(e0.x) * N, N, nb, a);
+    load_row<T, G, kVec>(m + static_cast<size_t>(e1.x) * N, N, nb, b);
     const float w0 = __int_as_float(e0.y);
     const float w1 = __int_as_float(e1.y);
 #pragma unroll
@@ -180,7 +237,7 @@ __device__ __forceinline__ void accumulate(const float* __restrict__ m,
   if (i < c) {
     const int2 e0 = lst[i];
     float a[kDocsPerLane];
-    load_row<kVec>(m + static_cast<size_t>(e0.x) * N, N, nb, a);
+    load_row<T, G, kVec>(m + static_cast<size_t>(e0.x) * N, N, nb, a);
     const float w0 = __int_as_float(e0.y);
 #pragma unroll
     for (int t = 0; t < kDocsPerLane; ++t) acc[t] = fmaf(w0, a[t], acc[t]);
@@ -222,11 +279,11 @@ __device__ __forceinline__ int2 find_digit(const unsigned int* hist,
   return make_int2(digit, static_cast<int>(cum));
 }
 
-template <bool kVec>
+template <typename T1, typename T2, int G, bool kVec>
 __global__ void __launch_bounds__(kScoreThreads, 2)
-score_chunks_kernel(const float* __restrict__ m1, int K1,
+score_chunks_kernel(const T1* __restrict__ m1, int K1,
                     const int2* __restrict__ lists1,
-                    const float* __restrict__ m2, int K2,
+                    const T2* __restrict__ m2, int K2,
                     const int2* __restrict__ lists2,
                     const int* __restrict__ counts,
                     const uint8_t* __restrict__ deleted,
@@ -254,27 +311,34 @@ score_chunks_kernel(const float* __restrict__ m1, int K1,
   int f = 0;  // keys in the warp's list
 #pragma unroll 1
   for (int p = 0; p < kChunk / kPass; ++p) {
-    const int nb = n0 + p * kPass + 4 * lane;
-    // bit 4g+e: doc nb+128g+e is in range, live and passes the query's
+    const int nb = n0 + p * kPass + G * lane;
+    // bit G*g+e: doc nb+32*G*g+e is in range, live and passes the query's
     // filter
     unsigned int live = 0;
 #pragma unroll
-    for (int g = 0; g < 4; ++g) {
-      const int ng = nb + 128 * g;
+    for (int g = 0; g < kDocsPerLane / G; ++g) {
+      const int ng = nb + 32 * G * g;
       if (kVec && ng < N) {
-        const uchar4 d = *reinterpret_cast<const uchar4*>(deleted + ng);
-        uchar4 fr = make_uchar4(1, 1, 1, 1);
-        if (frow != nullptr) fr = *reinterpret_cast<const uchar4*>(frow + ng);
-        live |= static_cast<unsigned int>(d.x == 0 && fr.x != 0) << (4 * g);
-        live |= static_cast<unsigned int>(d.y == 0 && fr.y != 0) << (4 * g + 1);
-        live |= static_cast<unsigned int>(d.z == 0 && fr.z != 0) << (4 * g + 2);
-        live |= static_cast<unsigned int>(d.w == 0 && fr.w != 0) << (4 * g + 3);
+#pragma unroll
+        for (int h = 0; h < G / 4; ++h) {
+          const int b = G * g + 4 * h;
+          const uchar4 d =
+              *reinterpret_cast<const uchar4*>(deleted + ng + 4 * h);
+          uchar4 fr = make_uchar4(1, 1, 1, 1);
+          if (frow != nullptr) {
+            fr = *reinterpret_cast<const uchar4*>(frow + ng + 4 * h);
+          }
+          live |= static_cast<unsigned int>(d.x == 0 && fr.x != 0) << b;
+          live |= static_cast<unsigned int>(d.y == 0 && fr.y != 0) << (b + 1);
+          live |= static_cast<unsigned int>(d.z == 0 && fr.z != 0) << (b + 2);
+          live |= static_cast<unsigned int>(d.w == 0 && fr.w != 0) << (b + 3);
+        }
       } else if (!kVec) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
+        for (int e = 0; e < G; ++e) {
           const int n = ng + e;
           if (n < N && deleted[n] == 0 && (frow == nullptr || frow[n] != 0)) {
-            live |= 1u << (4 * g + e);
+            live |= 1u << (G * g + e);
           }
         }
       }
@@ -289,11 +353,11 @@ score_chunks_kernel(const float* __restrict__ m1, int K1,
       acc1[t] = 0.0f;
       acc2[t] = 0.0f;
     }
-    accumulate<kVec>(m1, l1, c1, N, nb, acc1);
-    if (c2 > 0) accumulate<kVec>(m2, l2, c2, N, nb, acc2);
+    accumulate<T1, G, kVec>(m1, l1, c1, N, nb, acc1);
+    if (c2 > 0) accumulate<T2, G, kVec>(m2, l2, c2, N, nb, acc2);
 #pragma unroll
     for (int t = 0; t < kDocsPerLane; ++t) {
-      const int n = nb + 128 * (t >> 2) + (t & 3);
+      const int n = nb + 32 * G * (t / G) + (t % G);
       const float v = acc1[t] + acc2[t];
       const bool ok = ((live >> t) & 1u) != 0 && v > 0.0f;
       const unsigned int mk = __ballot_sync(0xffffffffu, ok);
@@ -504,6 +568,39 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+// The score kernel for these M types: G = 4 docs a group for two f32
+// operands, 8 with a bf16 one; the 16-byte loads where N and the bases
+// allow them.
+template <typename T1, typename T2>
+int launch_score(const void* m1, int K1, const int2* lists1, const void* m2,
+                 int K2, const int2* lists2, const int* counts,
+                 const void* deleted, const void* frows, const void* fidx,
+                 int Q, int N, int n_chunks, int KC,
+                 unsigned long long* cand, int* cand_cnt, cudaStream_t s) {
+  constexpr int G = (sizeof(T1) == 2 || sizeof(T2) == 2) ? 8 : 4;
+  // vector loads need N % G == 0, 16-byte-aligned M bases and 4-byte-
+  // aligned mask bases (every row then starts aligned too)
+  const bool vec = N % G == 0 && aligned16(m1) &&
+                   (K2 == 0 || aligned16(m2)) &&
+                   (reinterpret_cast<uintptr_t>(deleted) & 3) == 0 &&
+                   (frows == nullptr ||
+                    (reinterpret_cast<uintptr_t>(frows) & 3) == 0);
+  const int q_groups = (Q + kWarps - 1) / kWarps;
+  const size_t smem = static_cast<size_t>(kWarps) * kChunk * 8;
+  auto score = vec ? score_chunks_kernel<T1, T2, G, true>
+                   : score_chunks_kernel<T1, T2, G, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      score, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  score<<<q_groups * n_chunks, kScoreThreads, smem, s>>>(
+      static_cast<const T1*>(m1), K1, lists1, static_cast<const T2*>(m2), K2,
+      lists2, counts, static_cast<const uint8_t*>(deleted),
+      static_cast<const uint8_t*>(frows), static_cast<const int*>(fidx), Q, N,
+      q_groups, n_chunks, KC, cand, cand_cnt);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -516,16 +613,18 @@ long long fused_topk_workspace_bytes(int Q, int N, int K1, int K2, int k) {
   return static_cast<long long>(make_plan(Q, N, K1, K2, k).bytes);
 }
 
-// w1 [Q, K1] f32, m1 [K1, N] f32; w2 [Q, K2], m2 [K2, N] (K2 = 0: absent);
-// deleted [N] uint8; frows [F+1, N] uint8 + fidx [Q] int32, or both null;
-// ws: fused_topk_workspace_bytes(...) bytes, 16-byte aligned; ts [Q, k]
-// f32, td [Q, k] int32; 1 <= k <= N. Launches every phase on `stream`
-// and returns the first cudaError.
-int fused_topk_launch(const void* w1, const void* m1, int K1, const void* w2,
-                      const void* m2, int K2, const void* deleted,
-                      const void* frows, const void* fidx, int Q, int N,
-                      int k, void* ws, long long ws_bytes, void* ts, void* td,
-                      void* stream) {
+// w1 [Q, K1] f32, m1 [K1, N] (bf16 when m1_bf16 is 1, else f32); w2 [Q,
+// K2] f32, m2 [K2, N] (bf16 when m2_bf16 is 1; K2 = 0: absent); deleted
+// [N] uint8; frows [F+1, N] uint8 + fidx [Q] int32, or both null; ws:
+// fused_topk_workspace_bytes(...) bytes, 16-byte aligned; ts [Q, k] f32,
+// td [Q, k] int32; 1 <= k <= N. Launches every phase on `stream` and
+// returns the first cudaError.
+int fused_topk_launch_typed(const void* w1, const void* m1, int K1,
+                            const void* w2, const void* m2, int K2,
+                            int m1_bf16, int m2_bf16, const void* deleted,
+                            const void* frows, const void* fidx, int Q, int N,
+                            int k, void* ws, long long ws_bytes, void* ts,
+                            void* td, void* stream) {
   if (Q == 0) return 0;
   if (k < 1 || k > N || K1 < 0 || K2 < 0) return cudaErrorInvalidValue;
   const Plan p = make_plan(Q, N, K1, K2, k);
@@ -551,26 +650,23 @@ int fused_topk_launch(const void* w1, const void* m1, int K1, const void* w2,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  // float4 / uchar4 loads need N % 4 == 0 and 16-byte-aligned rows
-  const bool vec = N % 4 == 0 && aligned16(m1) &&
-                   (K2 == 0 || aligned16(m2)) &&
-                   (reinterpret_cast<uintptr_t>(deleted) & 3) == 0 &&
-                   (frows == nullptr ||
-                    (reinterpret_cast<uintptr_t>(frows) & 3) == 0);
-  const int q_groups = (Q + kWarps - 1) / kWarps;
-  const size_t smem = static_cast<size_t>(kWarps) * kChunk * 8;
-  auto score = vec ? score_chunks_kernel<true> : score_chunks_kernel<false>;
-  err = cudaFuncSetAttribute(score, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  score<<<q_groups * p.n_chunks, kScoreThreads, smem, s>>>(
-      static_cast<const float*>(m1), K1, lists1,
-      static_cast<const float*>(m2), K2, lists2, counts,
-      static_cast<const uint8_t*>(deleted), static_cast<const uint8_t*>(frows),
-      static_cast<const int*>(fidx), Q, N, q_groups, p.n_chunks, p.KC, cand,
-      cand_cnt);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  using bf16 = __nv_bfloat16;
+  const int b1 = m1_bf16 ? 1 : 0;
+  const int b2 = K2 > 0 && m2_bf16 ? 1 : 0;
+  const int score_err =
+      b1 && b2 ? launch_score<bf16, bf16>(m1, K1, lists1, m2, K2, lists2,
+                                          counts, deleted, frows, fidx, Q, N,
+                                          p.n_chunks, p.KC, cand, cand_cnt, s)
+      : b1 ? launch_score<bf16, float>(m1, K1, lists1, m2, K2, lists2, counts,
+                                       deleted, frows, fidx, Q, N, p.n_chunks,
+                                       p.KC, cand, cand_cnt, s)
+      : b2 ? launch_score<float, bf16>(m1, K1, lists1, m2, K2, lists2, counts,
+                                       deleted, frows, fidx, Q, N, p.n_chunks,
+                                       p.KC, cand, cand_cnt, s)
+           : launch_score<float, float>(m1, K1, lists1, m2, K2, lists2,
+                                        counts, deleted, frows, fidx, Q, N,
+                                        p.n_chunks, p.KC, cand, cand_cnt, s);
+  if (score_err != 0) return score_err;
 
   if (p.P > 1) {
     select_lists_kernel<<<Q * p.P, kSelectThreads, 0, s>>>(
@@ -588,6 +684,16 @@ int fused_topk_launch(const void* w1, const void* m1, int K1, const void* w2,
   return topk_merge::merge_topk_launch(
       fin, Q, k, k, p.k2, N - 1, nullptr, static_cast<float*>(ts),
       static_cast<int*>(td), scratch, nullptr, 0, nullptr, s);
+}
+
+// fused_topk_launch_typed with m1 and m2 in f32.
+int fused_topk_launch(const void* w1, const void* m1, int K1, const void* w2,
+                      const void* m2, int K2, const void* deleted,
+                      const void* frows, const void* fidx, int Q, int N,
+                      int k, void* ws, long long ws_bytes, void* ts, void* td,
+                      void* stream) {
+  return fused_topk_launch_typed(w1, m1, K1, w2, m2, K2, 0, 0, deleted, frows,
+                                 fidx, Q, N, k, ws, ws_bytes, ts, td, stream);
 }
 
 }  // extern "C"

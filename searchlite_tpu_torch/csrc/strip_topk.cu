@@ -58,7 +58,16 @@
 // strip_lanes_blocks_launch runs the tile kernel alone at KT = 1,024 and
 // writes every lane's (score, doc) instead of keys, for callers that read
 // the whole strip.
+//
+// Impacts in f32 or bf16 (SEARCHLITE_PRECISION=bf16, ops/precision.py):
+// the tile kernel is templated on the impact type. A bf16 block row is
+// 256 bytes, so a thread's four lanes are one 8-byte load instead of 16;
+// each impact is widened with __bfloat162float (exact) where it is loaded,
+// and everything after the load is the f32 code. So the kernel on bf16
+// operands is bit-identical to the plain version run on the impacts
+// widened to f32, as the f32 kernel is to the plain version on f32.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -97,6 +106,27 @@ __device__ __forceinline__ void cp_async_wait() {
 template <bool kGlobal>
 __device__ __forceinline__ int load_doc(const int* a, int i) {
   return kGlobal ? __ldg(a + i) : a[i];
+}
+
+// One impact, widened to f32 (exact for bf16).
+__device__ __forceinline__ float load_imp(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_imp(const __nv_bfloat16* p) {
+  return __bfloat162float(
+      __ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p))));
+}
+
+// Four consecutive impacts of a block row (p 16-byte aligned for f32,
+// 8-byte for bf16), widened to f32.
+__device__ __forceinline__ float4 load_imp4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 load_imp4(const __nv_bfloat16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  const float2 lo =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
 // A thread's four lower bounds (first index whose value is >= x[j]) in
@@ -229,10 +259,10 @@ __device__ __forceinline__ void warp_sort128_desc(unsigned long long (&k)[4]) {
   }
 }
 
-template <int LM>
+template <int LM, typename Imp>
 __global__ void __launch_bounds__(kThreads, 4)
 strip_tile_kernel(const int* __restrict__ bdocs,
-                  const float* __restrict__ bimps,
+                  const Imp* __restrict__ bimps,
                   const int* __restrict__ bstart, const int* __restrict__ bcnt,
                   const float* __restrict__ w, const int* __restrict__ sent,
                   int row0, int T, int nblk, int L, int n_tiles, int KT,
@@ -355,13 +385,14 @@ strip_tile_kernel(const int* __restrict__ bdocs,
   const float wt = s_w[t];
   int my_lo = INT_MAX;
   int my_hi = -1;
-  // four consecutive lanes a thread: one 16-byte load each of docs and
-  // impacts (a tile starts on a block row, nl is a multiple of 128)
+  // four consecutive lanes a thread: one 16-byte load of docs and one of
+  // impacts (8 bytes in bf16); a tile starts on a block row, nl is a
+  // multiple of 128
   int4 d4 = make_int4(dead, dead, dead, dead);
   float4 i4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   if (tid * kLanesPerThread < nl) {
     d4 = __ldg(reinterpret_cast<const int4*>(bdocs + base) + tid);
-    i4 = __ldg(reinterpret_cast<const float4*>(bimps + base) + tid);
+    i4 = load_imp4(bimps + base + tid * kLanesPerThread);
   }
   const int dl[kLanesPerThread] = {d4.x, d4.y, d4.z, d4.w};
   const float il[kLanesPerThread] = {i4.x, i4.y, i4.z, i4.w};
@@ -399,7 +430,7 @@ strip_tile_kernel(const int* __restrict__ bdocs,
         if (s > t) {
           owner[j] = false;
         } else {
-          const float imp = __ldg(bimps + s_start[s] + p[j]);
+          const float imp = load_imp(bimps + s_start[s] + p[j]);
           tree[j].add(__fmul_rn(imp, ws), L);
         }
       }
@@ -508,7 +539,7 @@ strip_tile_kernel(const int* __restrict__ bdocs,
         if (later) {
           owner[j] = false;
         } else {
-          const float imp = __ldg(bimps + s_start[s] + off + p[j]);
+          const float imp = load_imp(bimps + s_start[s] + off + p[j]);
           tree[j].add(__fmul_rn(imp, ws), L);
         }
       }
@@ -570,26 +601,67 @@ strip_tile_kernel(const int* __restrict__ bdocs,
   }
 }
 
-template <int LM>
-int launch_tiles(const int* bdocs, const float* bimps, const int* bstart,
+template <int LM, typename Imp>
+int launch_tiles(const int* bdocs, const Imp* bimps, const int* bstart,
                  const int* bcnt, const float* w, const int* sent, int B,
                  int T, int nblk, int L, int n_tiles, int KT,
                  unsigned long long* cand, int* tile_counts,
                  float* lane_scores, int* lane_docs, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(2) * kStageDocs * sizeof(int);
   cudaError_t err = cudaFuncSetAttribute(
-      strip_tile_kernel<LM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      strip_tile_kernel<LM, Imp>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   for (int row0 = 0; row0 < B; row0 += 65535) {
     const int rows = B - row0 < 65535 ? B - row0 : 65535;
-    strip_tile_kernel<LM><<<dim3(n_tiles, rows), kThreads, smem, stream>>>(
+    strip_tile_kernel<LM, Imp>
+        <<<dim3(n_tiles, rows), kThreads, smem, stream>>>(
         bdocs, bimps, bstart, bcnt, w, sent, row0, T, nblk, L, n_tiles, KT,
         cand, tile_counts, lane_scores, lane_docs);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
+}
+
+// The tile kernel at the sum-tree depth that covers log2_run.
+template <typename Imp>
+int launch_tiles_any(const int* bdocs, const Imp* bimps, const int* bstart,
+                     const int* bcnt, const float* w, const int* sent, int B,
+                     int T, int nblk, int L, int n_tiles, int KT,
+                     unsigned long long* cand, int* tile_counts,
+                     float* lane_scores, int* lane_docs, cudaStream_t stream) {
+  if (L <= 2) {
+    return launch_tiles<2, Imp>(bdocs, bimps, bstart, bcnt, w, sent, B, T,
+                                nblk, L, n_tiles, KT, cand, tile_counts,
+                                lane_scores, lane_docs, stream);
+  }
+  if (L <= 4) {
+    return launch_tiles<4, Imp>(bdocs, bimps, bstart, bcnt, w, sent, B, T,
+                                nblk, L, n_tiles, KT, cand, tile_counts,
+                                lane_scores, lane_docs, stream);
+  }
+  return launch_tiles<8, Imp>(bdocs, bimps, bstart, bcnt, w, sent, B, T,
+                              nblk, L, n_tiles, KT, cand, tile_counts,
+                              lane_scores, lane_docs, stream);
+}
+
+// Both impact types: imp_bf16 selects __nv_bfloat16, else f32.
+int launch_tiles_typed(const int* bdocs, const void* bimps, int imp_bf16,
+                       const int* bstart, const int* bcnt, const float* w,
+                       const int* sent, int B, int T, int nblk, int L,
+                       int n_tiles, int KT, unsigned long long* cand,
+                       int* tile_counts, float* lane_scores, int* lane_docs,
+                       cudaStream_t stream) {
+  if (imp_bf16) {
+    return launch_tiles_any(bdocs, static_cast<const __nv_bfloat16*>(bimps),
+                            bstart, bcnt, w, sent, B, T, nblk, L, n_tiles,
+                            KT, cand, tile_counts, lane_scores, lane_docs,
+                            stream);
+  }
+  return launch_tiles_any(bdocs, static_cast<const float*>(bimps), bstart,
+                          bcnt, w, sent, B, T, nblk, L, n_tiles, KT, cand,
+                          tile_counts, lane_scores, lane_docs, stream);
 }
 
 }  // namespace
@@ -601,8 +673,9 @@ int strip_topk_tile_lanes() { return kTileLanes; }
 int strip_topk_max_slots() { return kMaxSlots; }
 int strip_topk_sort_smem_keys() { return topk_merge::kSortSmem; }
 
-// block_docs [R, 128] int32 and block_impacts [R, 128] f32 (16-byte
-// aligned); bstart, bcnt [B, T] int32, w [B, T] f32; sent [2] int32 on the
+// block_docs [R, 128] int32 and block_impacts [R, 128] f32, or bf16 when
+// imp_bf16 is 1 (both 16-byte aligned); bstart, bcnt [B, T] int32, w [B,
+// T] f32; sent [2] int32 on the
 // device (sentinel block row, dead doc n1-1). Scratch: cand [B, n_tiles *
 // KT] uint64, tile_counts [B, n_tiles] int32, merge_scratch [B, k2] uint64
 // when k2 > strip_topk_sort_smem_keys() (else null). Outputs ts [B, k] f32,
@@ -611,7 +684,7 @@ int strip_topk_sort_smem_keys() { return topk_merge::kSortSmem; }
 // of two >= k; T <= strip_topk_max_slots(); log2_run <= 8. Launches the
 // tile kernel and the row merge on `stream`; returns the first cudaError.
 int strip_topk_blocks_launch(const void* block_docs, const void* block_impacts,
-                             const void* bstart, const void* bcnt,
+                             int imp_bf16, const void* bstart, const void* bcnt,
                              const void* w, const void* sent, int B, int T,
                              int nblk, int k, int k2, int log2_run, int KT,
                              int n_tiles, void* cand, void* tile_counts,
@@ -625,25 +698,14 @@ int strip_topk_blocks_launch(const void* block_docs, const void* block_impacts,
     return cudaErrorInvalidValue;
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* bd = static_cast<const int*>(block_docs);
-  const float* bi = static_cast<const float*>(block_impacts);
-  const int* bs = static_cast<const int*>(bstart);
-  const int* bc = static_cast<const int*>(bcnt);
-  const float* wf = static_cast<const float*>(w);
   const int* sp = static_cast<const int*>(sent);
   unsigned long long* c = static_cast<unsigned long long*>(cand);
   int* tc = static_cast<int*>(tile_counts);
-  int err;
-  if (log2_run <= 2) {
-    err = launch_tiles<2>(bd, bi, bs, bc, wf, sp, B, T, nblk, log2_run,
-                          n_tiles, KT, c, tc, nullptr, nullptr, s);
-  } else if (log2_run <= 4) {
-    err = launch_tiles<4>(bd, bi, bs, bc, wf, sp, B, T, nblk, log2_run,
-                          n_tiles, KT, c, tc, nullptr, nullptr, s);
-  } else {
-    err = launch_tiles<8>(bd, bi, bs, bc, wf, sp, B, T, nblk, log2_run,
-                          n_tiles, KT, c, tc, nullptr, nullptr, s);
-  }
+  const int err = launch_tiles_typed(
+      static_cast<const int*>(block_docs), block_impacts, imp_bf16,
+      static_cast<const int*>(bstart), static_cast<const int*>(bcnt),
+      static_cast<const float*>(w), sp, B, T, nblk, log2_run, n_tiles, KT, c,
+      tc, nullptr, nullptr, s);
   if (err != 0) return err;
   return topk_merge::merge_topk_launch(
       c, B, n_tiles * KT, k, k2, 0, sp + 1, static_cast<float*>(ts),
@@ -660,8 +722,9 @@ int strip_topk_blocks_launch(const void* block_docs, const void* block_impacts,
 // n_tiles >= ceil(nblk / 8) + T; the other operands as
 // strip_topk_blocks_launch's.
 int strip_lanes_blocks_launch(const void* block_docs, const void* block_impacts,
-                              const void* bstart, const void* bcnt,
-                              const void* w, const void* sent, int B, int T,
+                              int imp_bf16, const void* bstart,
+                              const void* bcnt, const void* w,
+                              const void* sent, int B, int T,
                               int nblk, int log2_run, int n_tiles,
                               void* lane_scores, void* lane_docs,
                               void* tile_counts, void* stream) {
@@ -670,26 +733,13 @@ int strip_lanes_blocks_launch(const void* block_docs, const void* block_impacts,
       n_tiles < 1 || n_tiles > 65535) {
     return cudaErrorInvalidValue;
   }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* bd = static_cast<const int*>(block_docs);
-  const float* bi = static_cast<const float*>(block_impacts);
-  const int* bs = static_cast<const int*>(bstart);
-  const int* bc = static_cast<const int*>(bcnt);
-  const float* wf = static_cast<const float*>(w);
-  const int* sp = static_cast<const int*>(sent);
-  float* ls = static_cast<float*>(lane_scores);
-  int* ld = static_cast<int*>(lane_docs);
-  int* tc = static_cast<int*>(tile_counts);
-  if (log2_run <= 2) {
-    return launch_tiles<2>(bd, bi, bs, bc, wf, sp, B, T, nblk, log2_run,
-                           n_tiles, kTileLanes, nullptr, tc, ls, ld, s);
-  }
-  if (log2_run <= 4) {
-    return launch_tiles<4>(bd, bi, bs, bc, wf, sp, B, T, nblk, log2_run,
-                           n_tiles, kTileLanes, nullptr, tc, ls, ld, s);
-  }
-  return launch_tiles<8>(bd, bi, bs, bc, wf, sp, B, T, nblk, log2_run,
-                         n_tiles, kTileLanes, nullptr, tc, ls, ld, s);
+  return launch_tiles_typed(
+      static_cast<const int*>(block_docs), block_impacts, imp_bf16,
+      static_cast<const int*>(bstart), static_cast<const int*>(bcnt),
+      static_cast<const float*>(w), static_cast<const int*>(sent), B, T, nblk,
+      log2_run, n_tiles, kTileLanes, nullptr, static_cast<int*>(tile_counts),
+      static_cast<float*>(lane_scores), static_cast<int*>(lane_docs),
+      static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

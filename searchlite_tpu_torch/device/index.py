@@ -12,8 +12,9 @@ explicit ``torch.device``:
 
 - ``block_docs [n_block_rows+1, 128] int32``: doc ordinals, pads and the
   trailing gather-pad row hold the dead slot ``n1-1``;
-- ``block_impacts [n_block_rows+1, 128] f32``: the RAW impacts, which no
-  tombstone touches, so every tombstone state of a segment shares them;
+- ``block_impacts [n_block_rows+1, 128]`` (f32, or bf16: see below): the
+  RAW impacts, which no tombstone touches, so every tombstone state of a
+  segment shares them;
 - ``block_impacts_live``: impacts with tombstoned docs zeroed (the strip
   scorer's deletion contract), derived on the device from the raw table
   and ``deleted`` at first use; the raw table itself while nothing is
@@ -24,13 +25,20 @@ explicit ``torch.device``:
 - ``deleted [n1] bool``.
 
 and, built on first use and cached, what the dense and term-split scorers
-read: :meth:`DeviceSegment.dense_rows` (resident f32 impact rows of the
+read: :meth:`DeviceSegment.dense_rows` (resident impact rows of the
 highest-df terms) and :meth:`DeviceSegment.heavy_lookup` (the head-term
 doc-to-block lookup). The single-query reader also reads the host build's
 ``posting_base``, ``block_max_impact`` (per-block max impact, the
 pruning telemetry) and ``live_term_df`` (the term split's counts).
 
-Impacts stay f32. :func:`cached_segment` shares segments across readers,
+The impact tables on the device (``block_impacts``, the flat postings,
+the doc-shard and mesh tables) store ``DeviceSegment.impact_dtype``, the
+precision policy's :func:`~searchlite_tpu_torch.ops.precision.
+impacts_store_dtype` for the segment's device when it was opened, and
+the dense rows :func:`~searchlite_tpu_torch.ops.precision.
+dense_store_dtype`: f32 unless a bf16 mode asks (``ops/precision.py``),
+rounded on the host before upload. The host build stays f32.
+:func:`cached_segment` shares segments across readers,
 and a commit that only moves a segment's tombstones reopens it as a
 :meth:`DeviceSegment.clone_with_tombstones`: the tensors above that do not
 depend on deletions are the base's, by identity.
@@ -47,6 +55,10 @@ import torch
 
 from searchlite_tpu_torch.index.segment import SegmentReader
 from searchlite_tpu_torch.ops.impact import pow2_bucket, pow15_bucket
+from searchlite_tpu_torch.ops.precision import (
+    dense_store_dtype,
+    impacts_store_dtype,
+)
 from searchlite_tpu_torch.ops.sparse import build_heavy_lookup_host
 
 
@@ -310,8 +322,9 @@ TENSOR_KEYS = ("block_docs", "block_impacts", "sparse_tid_tbl",
 # host): the lookup table, per-term base and log2 group width, max impact
 HEAVY_KEYS = ("tbl", "base", "log2g", "maximp")
 # DeviceSegment.flat_postings' tensors: the (term, doc)-sorted CSR postings
-# the doc-tile run scorers read (int32 docs, f32 RAW impacts: the tile
-# path masks tombstones by ``deleted_tiles``); 8 bytes a posting
+# the doc-tile run scorers read (int32 docs, RAW impacts: the tile
+# path masks tombstones by ``deleted_tiles``); 8 bytes a posting, 6 with
+# bf16 impacts
 FLAT_KEYS = ("docs_flat", "impacts_flat")
 # DeviceSegment.mesh_sparse_tables' per-shard tensors
 MESH_KEYS = ("block_docs", "block_impacts", "tid_tbl", "sent", "dead")
@@ -334,20 +347,35 @@ def host_arrays(host: HostSegment) -> dict[str, np.ndarray]:
     }
 
 
+def _host_tensor(arr) -> torch.Tensor:
+    """A CPU tensor holding a copy of ``arr``'s bits (a bfloat16 numpy
+    array, as JAX hands out, is carried through its uint16 view)."""
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(arr.copy())
+
+
 def from_host_arrays(arrays: dict[str, np.ndarray], device,
-                     keys=TENSOR_KEYS) -> dict[str, torch.Tensor]:
+                     keys=TENSOR_KEYS, dtypes=None) -> dict[str, torch.Tensor]:
     """Carry a segment's state across: the numpy arrays of ``keys`` (from
-    the host build, or any other source of the same layout) as tensors on
-    ``device``, bit for bit. The default
+    the host build, or any other source of the same layout, bf16 included)
+    as tensors on ``device``, bit for bit; ``dtypes`` ({key: torch dtype})
+    converts those keys on the host first (round to nearest even), so the
+    copy carries the stored form. The default
     keys are the strip route's; :data:`HEAVY_KEYS` carries a
     ``heavy_lookup(term_cap)``, ``("m_dense",)`` a
     ``dense_rows(budget)["m_dense"]``, :data:`FLAT_KEYS` the flat
     postings and ``ops/tiles.py::TILE_KEYS`` a ``TileIndex``'s tables."""
     device = torch.device(device)
+    dtypes = dtypes or {}
     out = {}
     for key in keys:
-        arr = np.ascontiguousarray(arrays[key])
-        out[key] = torch.from_numpy(arr.copy()).to(device)
+        t = _host_tensor(arrays[key])
+        if key in dtypes and t.dtype != dtypes[key]:
+            t = t.to(dtypes[key])
+        out[key] = t.to(device)
     return out
 
 
@@ -356,7 +384,8 @@ def live_block_impacts(block_docs: torch.Tensor,
                        deleted: torch.Tensor) -> torch.Tensor:
     """``block_impacts`` with the lanes of deleted docs zeroed: one
     elementwise pass over ``[n_block_rows+1, 128]`` on the tensors'
-    device (JAX ``DeviceSegment.block_impacts_live``)."""
+    device, in the raw table's dtype (JAX
+    ``DeviceSegment.block_impacts_live``)."""
     return torch.where(deleted[block_docs.long()],
                        block_impacts.new_zeros(()), block_impacts)
 
@@ -391,7 +420,13 @@ class DeviceSegment:
         self.n_block_rows = self.host.n_block_rows
         self.posting_base = self.host.posting_base
         self.block_max_impact = self.host.block_max_impact
-        tensors = from_host_arrays(host_arrays(self.host), self.device)
+        # the impact tables' storage, fixed when the segment is opened
+        # (cached_segment keys on it): every table built later from this
+        # segment, clones included, stores the same dtype
+        self.impact_dtype = impacts_store_dtype(self.device)
+        tensors = from_host_arrays(
+            host_arrays(self.host), self.device,
+            dtypes={"block_impacts": self.impact_dtype})
         self.block_docs = tensors["block_docs"]
         self.block_impacts = tensors["block_impacts"]
         self.sparse_sentinels = tensors["sparse_sentinels"]
@@ -469,14 +504,16 @@ class DeviceSegment:
 
     def flat_postings(self) -> dict[str, torch.Tensor]:
         """The flat CSR postings on this segment's device (keys
-        :data:`FLAT_KEYS`), uploaded at the first pruned or chunked use
-        and cached: 8 bytes a posting."""
+        :data:`FLAT_KEYS`; impacts in :attr:`impact_dtype`), uploaded at
+        the first pruned or chunked use and cached: 8 bytes a posting, 6
+        with bf16 impacts."""
         flat = self._shared.get("flat_postings")
         if flat is None:
             flat = self._shared["flat_postings"] = from_host_arrays(
                 {"docs_flat": self.host.docs_flat_np,
                  "impacts_flat": self.host.impacts_flat_np},
-                self.device, keys=FLAT_KEYS)
+                self.device, keys=FLAT_KEYS,
+                dtypes={"impacts_flat": self.impact_dtype})
         return flat
 
     def evict_device_caches(self) -> None:
@@ -521,8 +558,9 @@ class DeviceSegment:
         (a shard's doc axis is ``shard_width + 1`` wide). Every shard's
         slice is still term-major and doc-ascending, so one shard scores
         through the same block gather as a whole segment. ``block_docs``
-        int32 and ``block_impacts`` f32 (RAW impacts: tombstones are
-        masked by the shard's deleted row) go to the segment's device;
+        int32 and ``block_impacts`` in :attr:`impact_dtype` (RAW impacts:
+        tombstones are masked by the shard's deleted row) go to the
+        segment's device;
         ``block_base`` / ``blocks`` / ``counts`` (per key
         ``shard * n_terms + term``), ``docs_sh_np`` / ``imps_sh_np`` /
         ``posting_base`` stay on the host. Cached for the last
@@ -564,7 +602,8 @@ class DeviceSegment:
             bimps.reshape(-1)[dest] = imps_sh
         tensors = from_host_arrays(
             {"block_docs": bdocs, "block_impacts": bimps}, self.device,
-            keys=("block_docs", "block_impacts"))
+            keys=("block_docs", "block_impacts"),
+            dtypes={"block_impacts": self.impact_dtype})
         cached = {
             "n_shards": n_shards,
             "shard_width": int(shard_width),
@@ -588,7 +627,8 @@ class DeviceSegment:
         shard ``d``'s tensors on ``devices[d]``. Built from
         :meth:`doc_shards`' reordered postings: each shard's 128-wide
         blocks padded to a uniform pow-1.5 ``bp`` rows (``block_docs`` /
-        ``block_impacts`` [bp, 128]; pad lanes and rows hold the shard's
+        ``block_impacts`` [bp, 128], impacts in :attr:`impact_dtype`, JAX
+        ``impacts_store_dtype``; pad lanes and rows hold the shard's
         dead doc ``width`` and zero impacts; tombstoned docs' impacts are
         zeroed too, the strip core's deletion contract), a term table
         ``tid_tbl`` [3, n_terms_pad] (local block start, block count, f32
@@ -652,7 +692,8 @@ class DeviceSegment:
             "block_impacts": bimps[d * bp:(d + 1) * bp],
             "tid_tbl": tid_tbl[d],
             "sent": np.array([bp - 1, width], dtype=np.int32),
-            "dead": dead}, dev, keys=MESH_KEYS)
+            "dead": dead}, dev, keys=MESH_KEYS,
+            dtypes={"block_impacts": self.impact_dtype})
             for d, dev in enumerate(devices)]
         cached = {
             "key": key,
@@ -672,15 +713,20 @@ class DeviceSegment:
         n1/512, highest first) within ``budget_bytes``, the host half of
         the JAX ``DeviceSegment.dense_rows`` in numpy: one vectorized
         scatter of the selected terms' postings (tombstoned docs keep
-        their impacts; the scorers mask them). f32 always: the port keeps
-        exact f32. Returns None when no term qualifies, else
-        ``{"row_of_tid": {tid: row}, "m_dense": [R+1, n1] f32}`` (last
-        row zeros, the pad row). Cached per budget."""
-        if budget_bytes in self._dense_rows:
-            return self._dense_rows[budget_bytes]
+        their impacts; the scorers mask them). Stored in
+        ``dense_store_dtype()`` (f32; bf16 under
+        ``SEARCHLITE_PRECISION=bf16``, where one budget holds twice the
+        rows), converted on the host before upload. Returns None when no
+        term qualifies, else ``{"row_of_tid": {tid: row}, "m_dense":
+        [R+1, n1]}`` (last row zeros, the pad row). Cached per (budget,
+        dtype)."""
+        dtype = dense_store_dtype()
+        key = (budget_bytes, dtype)
+        if key in self._dense_rows:
+            return self._dense_rows[key]
         host = self.host
         term_df = host.reader.postings.term_df.astype(np.int64)
-        max_rows = budget_bytes // (self.n1 * 4)
+        max_rows = budget_bytes // (self.n1 * dtype.itemsize)
         order = np.argsort(-term_df, kind="stable")
         sel = order[:max_rows]
         rows = sel[term_df[sel] * 512 >= self.n1]
@@ -701,9 +747,10 @@ class DeviceSegment:
                 "row_of_tid": {int(t): i for i, t in enumerate(rows)},
                 "m_dense": from_host_arrays(
                     {"m_dense": m.reshape(n_rows + 1, self.n1)},
-                    self.device, keys=("m_dense",))["m_dense"],
+                    self.device, keys=("m_dense",),
+                    dtypes={"m_dense": dtype})["m_dense"],
             }
-        self._dense_rows[budget_bytes] = out
+        self._dense_rows[key] = out
         return out
 
     def heavy_lookup(self, term_cap: int) -> dict[str, torch.Tensor]:
@@ -722,7 +769,8 @@ class DeviceSegment:
 # Segments are immutable, so their uploads are shared by every reader a
 # commit reopens. Two bounded caches: the exact one, keyed by the
 # segment's tombstone state too, and the base one, which holds the newest
-# state seen of each (segment id, k1, b, tier placement, device) for
+# state seen of each (segment id, k1, b, tier placement, device, impact
+# dtype) for
 # :func:`cached_segment` to clone from. Both drop the entry opened longest
 # ago: a live index mints a segment id a commit, and first-in-first-out
 # would drop the oldest id, which is the big base segment every reader
@@ -738,14 +786,17 @@ def cached_segment(storage, meta, ordinal: int, k1: float, b: float,
                    ) -> tuple[SegmentReader, DeviceSegment]:
     """(SegmentReader, DeviceSegment) for an immutable segment, shared
     process-wide (JAX ``api/reader.py::_cached_segment``). Keyed by
-    (segment id, k1, b, tier placement, device) and the tombstones: a
+    (segment id, k1, b, tier placement, device, impact dtype) and the
+    tombstones, so a reader opened under another precision mode builds
+    its own tables and clones share only within one dtype: a
     commit that only ADDS segments reuses every entry; one that moves a
     segment's tombstones, or a merge that shifts its ordinal, clones the
     base entry (``clone_with_tombstones``: no file is read, no impact
     recomputed, one [n1] bool uploaded). Only a segment id never seen on
     this placement is read, built and uploaded."""
     device = torch.device(device)
-    base_key = (meta.id, float(k1), float(b), bool(tiered), str(device))
+    base_key = (meta.id, float(k1), float(b), bool(tiered), str(device),
+                impacts_store_dtype(device))
     key = base_key + (tuple(meta.deleted_docs),)
     with _LOCK:
         hit = _SEGMENTS.get(key)

@@ -62,6 +62,8 @@ import os
 import numpy as np
 import torch
 
+from searchlite_tpu_torch.ops.precision import strict
+
 DEVICE_AGG_KINDS = ("terms", "significant_terms", "rare_terms",
                     "histogram", "date_histogram", "range",
                     "date_range", "filter", "stats", "extended_stats",
@@ -77,12 +79,6 @@ _F32_EXACT = float(1 << 24)
 
 def _v_cap() -> int:
     return int(os.environ.get("SEARCHLITE_DEVICE_AGG_VCAP", "8"))
-
-
-def strict() -> bool:
-    """``SEARCHLITE_PRECISION=f32_strict``: stats stay with the host's
-    f64 collectors."""
-    return os.environ.get("SEARCHLITE_PRECISION") == "f32_strict"
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,14 @@ the dead doc slot ``N-1`` as their id.
 (``csrc/fused_topk.cu``). There is no fallback between the two. Both sum
 in f32 (the plain version with TF32 off), in different orders, so scores
 agree to f32 reassociation (divergence D10).
+
+``M1`` and ``M2`` may each be f32 or bf16 (the resident dense rows under
+``SEARCHLITE_PRECISION=bf16``, beside an f32 ``M2``); ``W1`` / ``W2`` stay
+f32, rounded by the caller where the JAX scorer rounds them. The kernel
+widens each bf16 element where it loads it; the plain version widens the
+bf16 operands to f32 before its product (``torch.matmul`` on bf16 tensors
+would round its result to bf16). ``COUNTS`` counts launches with two f32
+operands, ``COUNTS_BF16`` launches with a bf16 one.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import torch
 from searchlite_tpu_torch.ops.strip_topk import LaunchCounts
 
 COUNTS = LaunchCounts()
+COUNTS_BF16 = LaunchCounts()
 
 # the kernel's doc chunk (csrc/fused_topk.cu kChunk): each (query, chunk)
 # keeps its top min(k, CHUNK) candidates for the row's selection
@@ -44,8 +53,10 @@ def _check(w1, m1, deleted, k, w2, m2, filter_rows, fidx):
         raise ValueError(f"w2 {tuple(w2.shape)} @ m2 {tuple(m2.shape)} "
                          f"does not match [{q}, {n}]")
     mats = [w1, m1] + ([w2, m2] if w2 is not None else [])
-    if any(t.dtype != torch.float32 for t in mats):
-        raise ValueError("w and m must be float32")
+    if any(t.dtype != torch.float32 for t in mats[::2]) or any(
+            t.dtype not in (torch.float32, torch.bfloat16)
+            for t in mats[1::2]):
+        raise ValueError("w must be float32 and m float32 or bfloat16")
     if deleted.shape != (n,) or deleted.dtype != torch.bool:
         raise ValueError(f"deleted must be bool [{n}]")
     if (filter_rows is None) != (fidx is None):
@@ -75,7 +86,7 @@ def fused_topk(w1: torch.Tensor, m1: torch.Tensor, deleted: torch.Tensor,
     (scores [Q,k] f32, ids [Q,k] int32)."""
     _check(w1, m1, deleted, k, w2, m2, filter_rows, fidx)
     if w1.device.type == "cpu":
-        COUNTS.plain += 1
+        _counts(m1, m2).plain += 1
         return fused_topk_plain(w1, m1, deleted, k=k, w2=w2, m2=m2,
                                 filter_rows=filter_rows, fidx=fidx)
     if w1.device.type == "cuda":
@@ -85,14 +96,21 @@ def fused_topk(w1: torch.Tensor, m1: torch.Tensor, deleted: torch.Tensor,
         f"fused_topk has no path for device {w1.device}")
 
 
+def _counts(m1, m2) -> LaunchCounts:
+    bf16 = m1.dtype == torch.bfloat16 or (
+        m2 is not None and m2.dtype == torch.bfloat16)
+    return COUNTS_BF16 if bf16 else COUNTS
+
+
 def fused_topk_plain(w1, m1, deleted, *, k: int, w2=None, m2=None,
                      filter_rows=None, fidx=None):
-    """The plain PyTorch version: ``torch.matmul`` (TF32 off), the masks,
-    a stable descending sort, the first k. (``torch.topk`` promises no
-    tie order, so it is not used.)"""
-    scores = torch.matmul(w1, m1)
+    """The plain PyTorch version: ``torch.matmul`` (TF32 off) of the
+    operands in f32 (a bf16 ``M`` widened first), the masks, a stable
+    descending sort, the first k. (``torch.topk`` promises no tie order,
+    so it is not used.)"""
+    scores = torch.matmul(w1, m1.to(torch.float32))
     if w2 is not None:
-        scores = scores + torch.matmul(w2, m2)
+        scores = scores + torch.matmul(w2, m2.to(torch.float32))
     ok = (scores > 0.0) & ~deleted[None, :]
     if filter_rows is not None:
         ok = ok & filter_rows[fidx.long()]
@@ -121,6 +139,13 @@ def _set_signatures(lib):
                    + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
                    + [ctypes.c_void_p, ctypes.c_longlong]
                    + [ctypes.c_void_p] * 3)
+    # the bf16 entry; a build of an older source (tools/fused_ab.py) has
+    # only the f32 one
+    typed = getattr(lib, "fused_topk_launch_typed", None)
+    if typed is not None:
+        typed.restype = ctypes.c_int
+        typed.argtypes = (fn.argtypes[:6] + [ctypes.c_int] * 2
+                          + fn.argtypes[6:])
     return lib
 
 
@@ -155,14 +180,20 @@ def _fused_topk_cuda(w1, m1, deleted, *, k: int, w2, m2, filter_rows,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    counts = _counts(m1, m2)
+    # f32 operands keep the f32 entry; a bf16 one takes the typed entry
+    types = () if counts is COUNTS else (
+        int(m1.dtype == torch.bfloat16),
+        int(m2 is not None and m2.dtype == torch.bfloat16))
+    launch = lib.fused_topk_launch_typed if types else lib.fused_topk_launch
     with torch.cuda.device(dev):  # launch on the operands' card
-        err = lib.fused_topk_launch(
-            w1.data_ptr(), m1.data_ptr(), k1, ptr(w2), ptr(m2), k2,
+        err = launch(
+            w1.data_ptr(), m1.data_ptr(), k1, ptr(w2), ptr(m2), k2, *types,
             deleted.data_ptr(), ptr(filter_rows), ptr(fidx), q, n, k,
             ws.data_ptr(), ws_bytes, ts.data_ptr(), td.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_topk launch failed: cudaError {err} "
-                           f"(Q={q}, N={n}, k={k})")
-    COUNTS.launches += 1
+                           f"(Q={q}, N={n}, k={k}, M {m1.dtype})")
+    counts.launches += 1
     return ts, td

@@ -631,7 +631,11 @@ def split_impact_scorer(block_docs, block_impacts, m_dense, deleted, packed,
     int32 per-batch upload of ``split_impact_batch``: block rows, their
     slots, then the dense and sparse weight COOs with f32 values
     bit-cast. The resident ``m_dense [R+1, n1]`` is read in place, never
-    copied or concatenated with the batch's M."""
+    copied or concatenated with the batch's M. Where ``m_dense`` stores
+    bf16 (``SEARCHLITE_PRECISION=bf16``), ``Wd`` is rounded to bf16 (round
+    to nearest even) and widened back to f32, as JAX rounds it before its
+    dot: each product of the two is then exact in f32. ``Ws`` stays f32:
+    ``M_sparse`` is scattered in f32 (``m_store_dtype``)."""
     o = 0
 
     def take(n):
@@ -650,6 +654,8 @@ def split_impact_scorer(block_docs, block_impacts, m_dense, deleted, packed,
     m_sparse = build_m_from_blocks(block_docs, block_impacts, blk_idx,
                                    slot_row, n1, s_pad)
     wd = densify_w(wd_idx, wd_val, n_queries, m_dense.shape[0])
+    if m_dense.dtype != wd.dtype:
+        wd = wd.to(m_dense.dtype).to(torch.float32)
     ws = densify_w(ws_idx, ws_val, n_queries, s_pad)
     return fused_topk(wd, m_dense, deleted, k=k, w2=ws, m2=m_sparse,
                       filter_rows=filter_rows, fidx=fidx)

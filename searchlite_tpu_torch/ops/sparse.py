@@ -515,7 +515,8 @@ def _heavy_contrib(block_docs, block_impacts, hb_tbl, docs, tbase, lg, blk0,
     """One heavy term's impact at each of ``docs`` [R, C] (0 where the
     term does not hold the doc): the lookup table names the block that
     may hold the doc, and the doc is searched in that block and the next
-    (two [R, C, 128] gathers). The term's fields are [R] per row."""
+    (two [R, C, 128] gathers, bf16 impacts widened to f32 before the
+    sum). The term's fields are [R] per row."""
     n_tbl = hb_tbl.shape[0]
     g = docs >> lg[:, None]  # docs are >= 0: logical == arithmetic
     ent_idx = torch.clamp(
@@ -527,9 +528,10 @@ def _heavy_contrib(block_docs, block_impacts, hb_tbl, docs, tbase, lg, blk0,
     b1 = torch.where(ok_h[:, None], b1, sentinel_row).long()
     b2 = torch.where(b2_ok, b2, sentinel_row).long()
     return (torch.where(block_docs[b1] == docs[..., None],
-                        block_impacts[b1], 0.0).sum(dim=-1)
+                        block_impacts[b1].to(torch.float32), 0.0).sum(dim=-1)
             + torch.where(block_docs[b2] == docs[..., None],
-                          block_impacts[b2], 0.0).sum(dim=-1))
+                          block_impacts[b2].to(torch.float32),
+                          0.0).sum(dim=-1))
 
 
 def candidate_core_split(block_docs, block_impacts, bstart, bcnt, w, sent,

@@ -26,6 +26,13 @@ merge, on the CPU the plain scan.
 
 :func:`strip_topk` over an already gathered (d, v) strip is the plain
 version alone, for CPU tensors.
+
+``block_impacts`` may be f32 or bf16 (``SEARCHLITE_PRECISION=bf16``,
+``ops/precision.py``): the kernel widens each impact where it loads it,
+the plain gather widens the gathered blocks before the weight product, so
+the kernel on bf16 operands stays bit-identical to the plain version on
+``block_impacts.float()``. ``COUNTS`` / ``LANES_COUNTS`` count the f32
+table's launches, ``COUNTS_BF16`` / ``LANES_COUNTS_BF16`` the bf16 one's.
 """
 
 from __future__ import annotations
@@ -65,8 +72,10 @@ class DeviceCalls:
 
 
 COUNTS = LaunchCounts()
+COUNTS_BF16 = LaunchCounts()
 # strip_lanes_blocks' launches (the tile pass alone) and plain calls
 LANES_COUNTS = LaunchCounts()
+LANES_COUNTS_BF16 = LaunchCounts()
 # strip_gather's calls: on CUDA only the plain version, never the main path
 GATHER_CALLS = DeviceCalls()
 
@@ -158,8 +167,9 @@ def strip_gather(block_docs, block_impacts, bstart, bcnt, w, sentinel_row,
     """Gather each row's posting blocks into an UNSORTED candidate strip
     (``ops/sparse.py::_strip_gather``). ``bstart``/``bcnt`` [B, t_pad]
     int32 are per-slot block starts and counts (0 for unused slots), ``w``
-    [B, t_pad] f32 the slot weights. Returns (d int32, v f32), both
-    [B, nblk*128]. Part of the plain version only."""
+    [B, t_pad] f32 the slot weights; bf16 impacts are widened to f32
+    before the product. Returns (d int32, v f32), both [B, nblk*128]. Part
+    of the plain version only."""
     GATHER_CALLS.add(bstart.device)
     B = bstart.shape[0]
     dev = bstart.device
@@ -177,7 +187,8 @@ def strip_gather(block_docs, block_impacts, bstart, bcnt, w, sentinel_row,
     blk_idx = torch.where(valid, blk, sentinel_row).long()
     w_blk = torch.gather(w, 1, t_safe)
     d = block_docs[blk_idx].reshape(B, nblk * 128)
-    v = (block_impacts[blk_idx] * w_blk[:, :, None]).reshape(B, nblk * 128)
+    v = (block_impacts[blk_idx].to(torch.float32)
+         * w_blk[:, :, None]).reshape(B, nblk * 128)
     return d, v
 
 
@@ -192,11 +203,11 @@ def _check_blocks(block_docs, block_impacts, bstart, bcnt, w, sent, k: int,
             or w.shape != bstart.shape:
         raise ValueError("bstart, bcnt and w must be the same [B, t_pad] "
                          "shape")
-    if (block_docs.dtype, block_impacts.dtype, bstart.dtype, bcnt.dtype,
-            w.dtype) != (torch.int32, torch.float32, torch.int32,
-                         torch.int32, torch.float32):
-        raise ValueError("block_docs, bstart, bcnt must be int32 and "
-                         "block_impacts, w float32")
+    if (block_docs.dtype, bstart.dtype, bcnt.dtype, w.dtype) != (
+            torch.int32, torch.int32, torch.int32, torch.float32) \
+            or block_impacts.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError("block_docs, bstart, bcnt must be int32, w "
+                         "float32 and block_impacts float32 or bfloat16")
     if sent.shape != (2,) or sent.dtype != torch.int32:
         raise ValueError("sent must be int32 [2] (sentinel block row, "
                          "dead doc slot)")
@@ -212,8 +223,8 @@ def strip_topk_blocks(block_docs: torch.Tensor, block_impacts: torch.Tensor,
                       w: torch.Tensor, sent: torch.Tensor, *, k: int,
                       nblk: int, log2_run: int, with_counts: bool = False):
     """Top-k of each row's candidate strip, read from the posting blocks:
-    ``block_docs`` [R, 128] int32 and ``block_impacts`` [R, 128] f32 (the
-    segment's, tombstones zeroed); per row ``bstart``/``bcnt`` [B, t_pad]
+    ``block_docs`` [R, 128] int32 and ``block_impacts`` [R, 128] f32 or
+    bf16 (the segment's, tombstones zeroed); per row ``bstart``/``bcnt`` [B, t_pad]
     int32 block ranges and ``w`` [B, t_pad] f32 slot weights; ``sent``
     [2] int32 (sentinel block row, dead doc slot ``n1-1``); ``nblk`` the
     strip's width in blocks. Returns (ts [B,k] f32, td [B,k] int32[,
@@ -225,7 +236,7 @@ def strip_topk_blocks(block_docs: torch.Tensor, block_impacts: torch.Tensor,
     _check_blocks(block_docs, block_impacts, bstart, bcnt, w, sent, k, nblk,
                   log2_run)
     if bstart.device.type == "cpu":
-        COUNTS.plain += 1
+        _by_dtype(block_impacts, COUNTS, COUNTS_BF16).plain += 1
         out = strip_topk_blocks_plain(block_docs, block_impacts, bstart,
                                       bcnt, w, sent, k=k, nblk=nblk,
                                       log2_run=log2_run)
@@ -248,6 +259,11 @@ def strip_topk_blocks_plain(block_docs, block_impacts, bstart, bcnt, w,
     return strip_topk_plain(d, v, sent[1:2], k=k, log2_run=log2_run)
 
 
+def _by_dtype(block_impacts, f32_counts, bf16_counts) -> LaunchCounts:
+    return bf16_counts if block_impacts.dtype == torch.bfloat16 \
+        else f32_counts
+
+
 _LAUNCH = None  # (top-k launch fn, tile lanes, max slots, sort smem keys,
 #                  all-lanes launch fn)
 
@@ -259,14 +275,15 @@ def _launcher():
         from searchlite_tpu_torch.ops._kernels import load
 
         lib = load("strip_topk")
+        # (block_docs, block_impacts, impacts-are-bf16, bstart, bcnt, w,
+        # sent, ...)
+        head = [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 4
         fn = lib.strip_topk_blocks_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
-                       + [ctypes.c_void_p] * 7)
+        fn.argtypes = head + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 7
         lanes = lib.strip_lanes_blocks_launch
         lanes.restype = ctypes.c_int
-        lanes.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                          + [ctypes.c_void_p] * 4)
+        lanes.argtypes = head + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
         _LAUNCH = (fn, lib.strip_topk_tile_lanes(),
                    lib.strip_topk_max_slots(),
                    lib.strip_topk_sort_smem_keys(), lanes)
@@ -319,8 +336,9 @@ def _strip_topk_blocks_cuda(block_docs, block_impacts, bstart, bcnt, w,
     scratch = None
     if k2 > sort_smem:
         scratch = torch.empty((B, k2), dtype=torch.int64, device=dev)
+    bf16 = int(block_impacts.dtype == torch.bfloat16)
     with torch.cuda.device(dev):  # launch on the operands' card
-        err = fn(block_docs.data_ptr(), block_impacts.data_ptr(),
+        err = fn(block_docs.data_ptr(), block_impacts.data_ptr(), bf16,
                  bstart.data_ptr(), bcnt.data_ptr(), w.data_ptr(),
                  sent.data_ptr(), B, t_pad, nblk, k, k2, log2_run, kt,
                  n_tiles, buf.data_ptr(), tile_counts.data_ptr(),
@@ -329,8 +347,9 @@ def _strip_topk_blocks_cuda(block_docs, block_impacts, bstart, bcnt, w,
                  torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"strip_topk launch failed: cudaError {err} "
-                           f"(B={B}, t_pad={t_pad}, nblk={nblk}, k={k})")
-    COUNTS.launches += 1
+                           f"(B={B}, t_pad={t_pad}, nblk={nblk}, k={k}, "
+                           f"impacts {block_impacts.dtype})")
+    _by_dtype(block_impacts, COUNTS, COUNTS_BF16).launches += 1
     return ts, td, counts
 
 
@@ -352,7 +371,7 @@ def strip_lanes_blocks(block_docs: torch.Tensor, block_impacts: torch.Tensor,
     _check_blocks(block_docs, block_impacts, bstart, bcnt, w, sent, 1, nblk,
                   log2_run)
     if bstart.device.type == "cpu":
-        LANES_COUNTS.plain += 1
+        _by_dtype(block_impacts, LANES_COUNTS, LANES_COUNTS_BF16).plain += 1
         return strip_lanes_blocks_plain(block_docs, block_impacts, bstart,
                                         bcnt, w, sent, nblk=nblk,
                                         log2_run=log2_run)
@@ -388,8 +407,9 @@ def _strip_lanes_blocks_cuda(block_docs, block_impacts, bstart, bcnt, w,
                        device=dev)
     tile_counts = torch.empty((B, n_tiles), dtype=torch.int32, device=dev)
     if B:
+        bf16 = int(block_impacts.dtype == torch.bfloat16)
         with torch.cuda.device(dev):  # launch on the operands' card
-            err = lanes(block_docs.data_ptr(), block_impacts.data_ptr(),
+            err = lanes(block_docs.data_ptr(), block_impacts.data_ptr(), bf16,
                         bstart.data_ptr(), bcnt.data_ptr(), w.data_ptr(),
                         sent.data_ptr(), B, t_pad, nblk, log2_run, n_tiles,
                         scores.data_ptr(), docs.data_ptr(),
@@ -397,6 +417,8 @@ def _strip_lanes_blocks_cuda(block_docs, block_impacts, bstart, bcnt, w,
                         torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"strip_lanes launch failed: cudaError {err} "
-                               f"(B={B}, t_pad={t_pad}, nblk={nblk})")
-        LANES_COUNTS.launches += 1
+                               f"(B={B}, t_pad={t_pad}, nblk={nblk}, "
+                               f"impacts {block_impacts.dtype})")
+        _by_dtype(block_impacts, LANES_COUNTS,
+                  LANES_COUNTS_BF16).launches += 1
     return scores, docs, tile_counts.sum(dim=1, dtype=torch.int32)

@@ -64,12 +64,8 @@ from searchlite_tpu_torch.ops.impact import (
     pow2_bucket,
     pow4_bucket,
 )
+from searchlite_tpu_torch.ops.precision import UB_SAFETY
 from searchlite_tpu_torch.ops.score import _matmul_f32, topk_by_doc
-
-# the bound matmul and the exact scorers associate their f32 sums
-# differently: bounds are inflated so rounding can never put a tile's
-# bound under a true score in it (returned scores are unaffected)
-UB_SAFETY = 1.02
 
 # TileIndex's tensors (from_host_arrays keys): the tile-max block layout
 # and the deleted mask in tile layout

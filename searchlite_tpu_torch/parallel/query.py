@@ -185,7 +185,9 @@ def make_sharded_dense_batch_scorer(mesh):
     fused score + mask + top-k kernel at N = ``width + 1`` (tombstoned
     docs' impacts are zero in the shard tables, so ``score > 0`` is the
     match mask: ``deleted`` holds only the dead column); then the merge.
-    Exact f32 with TF32 off, whatever ``SEARCHLITE_PRECISION`` says.
+    Each shard's M is f32 (``m_store_dtype``), its impacts widened from
+    the shard tables' storage (bf16 under the bf16 modes), and the sums
+    are f32 with TF32 off in every mode.
     Returns
 
         run(block_docs, block_impacts, blk_idx, slot_row, w_idx, w_val,

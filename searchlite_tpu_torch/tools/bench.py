@@ -1,6 +1,7 @@
 """The port's bench row: ``bench.py``'s protocol through the torch reader.
 
     python -m searchlite_tpu_torch.tools.bench [--docs N] [--device cuda]
+        [--precision f32_strict|bf16]
 
 Run from the repository root. Builds ``bench.py``'s Zipf corpus
 (``bench.build_docs``, 100,000 docs by default) through the port's own
@@ -15,8 +16,11 @@ protocol of ``bench.py`` (``main``, the part after the index build):
 3. the arrays row: the same stream with ``output="arrays"``, recorded as
    ``qps_protocol_b1024``, and the stream re-chunked at 4096 a batch;
 4. the oracle gate (``bench.verify_vs_oracle`` under
-   ``SEARCHLITE_PRECISION=f32_strict``): ``bm25`` and ``wand`` pairs of 16
-   queries, and the first 16 rows of the TIMED arrays runs;
+   ``SEARCHLITE_PRECISION=f32_strict``, or with ``--precision bf16`` under
+   ``bf16`` -- bf16 impact tables and dense rows, ``ops/precision.py`` --
+   at bench.py's bf16 tolerance, rtol 2e-2 and atol 1e-3): ``bm25`` and
+   ``wand`` pairs of 16 queries, and the first 16 rows of the TIMED arrays
+   runs;
 5. the same-run single-core C++ engine
    (``native/slt_cpu_engine.cpp``, best of its three modes), three turns
    interleaved with re-runs of the arrays stream, medians quoted;
@@ -25,9 +29,10 @@ protocol of ``bench.py`` (``main``, the part after the index build):
 
 Prints ONE JSON line ``{"metric", "value", "unit", "vs_baseline",
 "detail"}``: ``value`` is the median arrays-stream QPS, ``detail`` holds
-every row, ``torch.__version__``, and the card's name and power limit as
-``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
-them; the line is also written to ``chiprun_out/bench_torch[_<N>].json``.
+every row, the mode (``score_mode``), ``torch.__version__``, and the card's
+name and power limit as ``nvidia-smi --query-gpu=name,power.limit
+--format=csv,noheader`` gives them; the line is also written to
+``chiprun_out/bench_torch[_<N>][_bf16].json``.
 Exits non-zero when the gate fails, or when ``--device cuda`` finds no
 card. ``--device cpu`` (with a small ``--docs``) is for tests.
 """
@@ -37,6 +42,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import sys
 import time
 
@@ -79,9 +85,11 @@ def cpp_engine_qps(reader, queries, k: int):
     return best
 
 
-def run(docs: int, device: str, repeat: int = 8) -> dict:
-    """The protocol; returns the result dict (``detail.verified_vs_oracle``
-    says whether the gate passed)."""
+def run(docs: int, device: str, repeat: int = 8,
+        precision: str = "f32_strict") -> dict:
+    """The protocol in ``precision`` (``SEARCHLITE_PRECISION``, set before
+    the reader opens); returns the result dict
+    (``detail.verified_vs_oracle`` says whether the gate passed)."""
     import torch
 
     chip_smoke = _smoke()
@@ -91,15 +99,16 @@ def run(docs: int, device: str, repeat: int = 8) -> dict:
     K = bench.K
     on_card = device == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
-    os.environ["SEARCHLITE_PRECISION"] = "f32_strict"
+    os.environ["SEARCHLITE_PRECISION"] = precision
     detail = {"platform": "gpu" if on_card else "cpu",
               "torch": torch.__version__,
               "card": chip_smoke.card_line() if on_card else None,
-              "docs": docs, "score_mode": "f32_strict"}
+              "docs": docs, "score_mode": precision}
     t0 = time.perf_counter()
     index, _vectors = chip_smoke.build_index()
     detail["index_build_s"] = round(time.perf_counter() - t0, 2)
     reader = index.reader(device=device)
+    detail["impact_dtype"] = str(reader.device_segments[0].impact_dtype)
     batches = bench.build_queries()
 
     def timed(fn):
@@ -205,15 +214,22 @@ def main() -> int:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--repeat", type=int, default=8,
                     help="how many times the three batches make the stream")
+    ap.add_argument("--precision", default="f32_strict",
+                    choices=["f32_strict", "bf16"],
+                    help="SEARCHLITE_PRECISION of the run and its gate")
     args = ap.parse_args()
     if args.device == "cuda" and not torch.cuda.is_available():
         print("FAILED: torch.cuda.is_available() is False")
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
-    result = run(args.docs, args.device, args.repeat)
+    try:
+        result = run(args.docs, args.device, args.repeat, args.precision)
+    finally:  # the on-disk index chip_smoke.build_index wrote
+        shutil.rmtree(_smoke().INDEX_DIR, ignore_errors=True)
     line = json.dumps(result)
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
-    suffix = "" if args.docs == 100_000 else f"_{args.docs}"
+    suffix = ("" if args.docs == 100_000 else f"_{args.docs}") + (
+        "_bf16" if args.precision == "bf16" else "")
     with open(os.path.join(REPO, "chiprun_out",
                            f"bench_torch{suffix}.json"), "w") as fh:
         fh.write(line + "\n")
