@@ -111,6 +111,22 @@ NVIDIA GPU.
       plain versions on the first launch's operands (and, before the main
       paths, at the f32 kernels' shapes: strip bit-identical, fused to f32
       reassociation).
+   j. the repo's own tools through the port (after g; ``run_fuzz``,
+      ``run_scale``, ``run_strategy_micro``): j1, the knob-matrix fuzz
+      (``tools/fuzz_matrix.py``) for seeds 12345-12352 in full and seed
+      12377 with the single-query term split's gates opened (the all-lanes
+      pass), every check against its f64 oracle, the strip, all-lanes and
+      fused kernels each launched, a bf16 variant only in an iteration
+      that drew bf16, a plain version only while a reader with a segment
+      on the CPU (the host tier) served; j2, the MS MARCO-shaped scale
+      bench (``tools/bench_scale.py``) at 200,000 docs with the one-core
+      C++ engine's gate and the aggregation A/B; j3, the strategy
+      comparison (wand and bmw return bm25's top-k) and the micro suite
+      with every scenario on the card. In each, the first launch of each
+      kind (kernel, impact or M type, k < 10, mesh shard, filtered:
+      ``FirstLaunches``) is held against the plain version on its own
+      operands: strip and all-lanes bit-identical, fused to f32
+      reassociation.
    Every result is checked against ``bench.py``'s f64 oracle under
    ``SEARCHLITE_PRECISION=f32_strict`` (masked by the port's filter where
    there is one; result counts too; the structured set against oracles
@@ -145,6 +161,8 @@ import numpy as np
 # the port must run without JAX and without the JAX package: fail loudly
 sys.modules["jax"] = None
 sys.modules["searchlite_tpu"] = None
+
+from searchlite_tpu_torch.tools._common import card_line  # noqa: E402
 
 # widths [rows, lanes] the headline stream gives the strip kernel: one
 # coalesced 3,072-query launch set at 100k docs (tiers of 16/32/128/512
@@ -208,18 +226,6 @@ def env_set(**values):
 
 def log(*parts) -> None:
     print(*parts, flush=True)
-
-
-def card_line() -> str:
-    try:
-        res = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=60)
-        return res.stdout.strip().splitlines()[0] if res.stdout.strip() \
-            else f"nvidia-smi failed: {res.stderr.strip()}"
-    except (OSError, subprocess.SubprocessError) as e:
-        return f"nvidia-smi unavailable: {e}"
 
 
 def make_segment(rng, n1: int, n_terms: int, max_len: int):
@@ -477,6 +483,38 @@ def check_strip_kernel(seg, n1: int, shapes, k: int = K, t_pad: int = 4,
     return rows
 
 
+def check_lanes_call(name, args, kw):
+    """One all-lanes call (``strip_lanes_blocks``' operands ``args`` and
+    ``kw``) against its plain version: the same kept (doc, score) set bit
+    for bit and the same counts. Returns the kernel's (scores, counts) as
+    numpy; raises on disagreement."""
+    import torch
+
+    from searchlite_tpu_torch.ops.strip_topk import (
+        strip_lanes_blocks,
+        strip_lanes_blocks_plain,
+    )
+
+    ks, kd, kc = strip_lanes_blocks(*args, **kw)
+    ps, pd, pc = strip_lanes_blocks_plain(*args, **kw)
+    torch.cuda.synchronize()
+    ks, kd, kc = ks.cpu().numpy(), kd.cpu().numpy(), kc.cpu().numpy()
+    ps, pd, pc = ps.cpu().numpy(), pd.cpu().numpy(), pc.cpu().numpy()
+    if not np.array_equal(kc, pc):
+        raise AssertionError(f"{name}: counts differ")
+    for b in range(kc.shape[0]):
+        got = {int(d): int(x) for d, x in zip(
+            kd[b][np.isfinite(ks[b])], ks[b][np.isfinite(ks[b])]
+            .view(np.int32))}
+        want = {int(d): int(x) for d, x in zip(
+            pd[b][np.isfinite(ps[b])], ps[b][np.isfinite(ps[b])]
+            .view(np.int32))}
+        if got != want or len(got) != int(kc[b]):
+            raise AssertionError(f"{name}: the kept "
+                                 "(doc, score) sets differ")
+    return ks, kc
+
+
 def check_lanes_kernel(seg, n1: int, shapes, seed: int = 12,
                        bf16: bool = False):
     """The strip kernel's all-lanes pass (``strip_lanes_blocks``) vs its
@@ -507,24 +545,8 @@ def check_lanes_kernel(seg, n1: int, shapes, seed: int = 12,
                 torch.from_numpy(bcnt_np).cuda(),
                 torch.from_numpy(w_np).cuda(), sent)
         kw = dict(nblk=nblk, log2_run=2)
-        ks, kd, kc = strip_lanes_blocks(*args, **kw)
-        ps, pd, pc = strip_lanes_blocks_plain(*args, **kw)
-        torch.cuda.synchronize()
-        ks, kd, kc = ks.cpu().numpy(), kd.cpu().numpy(), kc.cpu().numpy()
-        ps, pd, pc = ps.cpu().numpy(), pd.cpu().numpy(), pc.cpu().numpy()
         name = f"{variant} [{B}, {L}]"
-        if not np.array_equal(kc, pc):
-            raise AssertionError(f"{name}: counts differ")
-        for b in range(B):
-            got = {int(d): int(x) for d, x in zip(
-                kd[b][np.isfinite(ks[b])], ks[b][np.isfinite(ks[b])]
-                .view(np.int32))}
-            want = {int(d): int(x) for d, x in zip(
-                pd[b][np.isfinite(ps[b])], ps[b][np.isfinite(ps[b])]
-                .view(np.int32))}
-            if got != want or len(got) != int(kc[b]):
-                raise AssertionError(f"{name}: the kept "
-                                     "(doc, score) sets differ")
+        ks, kc = check_lanes_call(name, args, kw)
         t_kern, t_plain = time_pair(lambda: strip_lanes_blocks(*args, **kw),
                                     lambda: strip_lanes_blocks_plain(*args,
                                                                      **kw),
@@ -599,10 +621,12 @@ def same_topk(ref_s, ref_i, got_s, got_i) -> float:
         else 0.0
 
 
-def check_fused_call(name, w1, m1, deleted, k: int, kw, n_false=None):
+def check_fused_call(name, w1, m1, deleted, k: int, kw, n_false=None,
+                     timed: bool = True):
     """One fused call against the plain version on the same tensors, then
-    timed beside it. ``n_false`` names a filter row that matches nothing.
-    Returns the per-shape dict; raises on any disagreement."""
+    (``timed``) timed beside it. ``n_false`` names a filter row that
+    matches nothing. Returns the per-shape dict; raises on any
+    disagreement."""
     import torch
 
     from searchlite_tpu_torch.ops.fused_topk import (
@@ -626,6 +650,16 @@ def check_fused_call(name, w1, m1, deleted, k: int, kw, n_false=None):
             ts[kw["fidx"].cpu().numpy() == n_false]).all():
         raise AssertionError(f"fused_topk {name}: the all-false "
                              "filter row matched")
+    md = "bf16 " if m1.dtype == torch.bfloat16 else ""
+    shape = (f"Wd [{Q}, {R}] {md}Md [{R}, {N}]"
+             + (f" + Ws [{Q}, {S}] Ms [{S}, {N}]" if S else "")
+             + (f", {nf} filter rows" if nf else "") + f", k={k}")
+    row = {"name": name, "shape": [Q, R, S, N], "k": k,
+           "max_abs_err": err, "finite": int(np.isfinite(ts).sum())}
+    if not timed:
+        log(f"fused_topk {name}: {shape}: agrees ({row['finite']} finite, "
+            f"max abs err {err:.3g})")
+        return row
     iters = 3 if Q * N > 1 << 24 else 20
     t_kern, t_plain = time_pair(
         lambda: fused_topk(w1, m1, deleted, k=k, **kw),
@@ -638,16 +672,10 @@ def check_fused_call(name, w1, m1, deleted, k: int, kw, n_false=None):
     t_lib = time_ms(lambda: torch.matmul(wcat, mcat), iters)
     del wcat, mcat
     bms, by = bound_ms(*fused_work(w1, m1, deleted, k, **kw))
-    row = {"name": name, "shape": [Q, R, S, N], "k": k,
-           "max_abs_err": err, "finite": int(np.isfinite(ts).sum()),
-           "ms": t_kern, "plain_ms": t_plain, "library_ms": t_lib,
-           "bound_ms": bms, "bound_by": by}
-    md = "bf16 " if m1.dtype == torch.bfloat16 else ""
-    log(f"fused_topk {name}: Wd [{Q}, {R}] {md}Md [{R}, {N}]"
-        + (f" + Ws [{Q}, {S}] Ms [{S}, {N}]" if S else "")
-        + (f", {nf} filter rows" if nf else "")
-        + f", k={k}: agrees ({row['finite']} finite, max abs err "
-        f"{err:.3g}); kernel {t_kern:.4f} ms, plain {t_plain:.4f} ms, "
+    row.update(ms=t_kern, plain_ms=t_plain, library_ms=t_lib, bound_ms=bms,
+               bound_by=by)
+    log(f"fused_topk {name}: {shape}: agrees ({row['finite']} finite, max "
+        f"abs err {err:.3g}); kernel {t_kern:.4f} ms, plain {t_plain:.4f} ms, "
         f"matmul {t_lib:.4f} ms, bound {bms:.4f} ms ({by})")
     return row
 
@@ -756,17 +784,13 @@ class Counts:
     impacts or a bf16 M)."""
 
     def __init__(self):
-        from searchlite_tpu_torch.ops import fused_topk, strip_topk
+        from searchlite_tpu_torch.ops import strip_topk
+        from searchlite_tpu_torch.tools._common import counters
 
-        self.counts = {"strip_topk": strip_topk.COUNTS,
-                       "strip_lanes": strip_topk.LANES_COUNTS,
-                       "fused_topk": fused_topk.COUNTS,
-                       "strip_topk_bf16": strip_topk.COUNTS_BF16,
-                       "strip_lanes_bf16": strip_topk.LANES_COUNTS_BF16,
-                       "fused_topk_bf16": fused_topk.COUNTS_BF16}
+        self.counts = counters()
         self.gathers = strip_topk.GATHER_CALLS
-        # phase i sets it: elsewhere no table is bf16, so no bf16 variant
-        # may launch
+        # phase i sets it, and phase j in a fuzz iteration that drew
+        # bf16: elsewhere no table is bf16, so no bf16 variant may launch
         self.bf16 = False
 
     def reset(self):
@@ -777,7 +801,7 @@ class Counts:
     def read(self):
         """(launches per kernel, plain-version calls); raises if the strip
         was gathered on the card (the kernel reads blocks in place), or
-        if a bf16 variant launched outside phase i."""
+        if a bf16 variant launched outside the bf16 mode."""
         if self.gathers.get("cuda"):
             raise AssertionError(
                 f"strip_gather ran {self.gathers.get('cuda')} time(s) on "
@@ -2111,11 +2135,12 @@ def check_strip_call(name, args, kw):
         dict(k=kw["k"], nblk=kw["nblk"], log2_run=kw["log2_run"]))
 
 
-def check_strip_blocks_call(name, op, skw):
+def check_strip_blocks_call(name, op, skw, timed: bool = True):
     """One recorded strip launch (``strip_topk_blocks``' operands ``op``
     and ``skw``) against the plain version on the same operands:
-    bit-identical on finite entries, ids and counts equal; then timed
-    beside it, with its bound. Returns the per-shape dict."""
+    bit-identical on finite entries, ids and counts equal; then
+    (``timed``) timed beside it, with its bound. Returns the per-shape
+    dict."""
     import torch
 
     from searchlite_tpu_torch.ops.strip_topk import (
@@ -2137,23 +2162,26 @@ def check_strip_blocks_call(name, op, skw):
             or not np.array_equal(cnt, pc):
         raise AssertionError(f"strip_topk {name}: the kernel and the plain "
                              "version differ")
+    row = {"name": name, "rows": int(bstart.shape[0]),
+           "lanes": skw["nblk"] * 128, "k": skw["k"],
+           "block_rows": int(block_docs.shape[0]), "finite": int(fin.sum()),
+           "max_abs_err": float(np.abs(ts[fin] - ps[fin]).max())
+           if fin.any() else 0.0}
+    shape = (f"[{row['rows']}, {row['lanes']}] over {row['block_rows']} "
+             f"{block_imps.dtype} block rows, k={skw['k']}: bit-identical "
+             f"({row['finite']} finite, counts equal)")
+    if not timed:
+        log(f"strip_topk {name}: {shape}")
+        return row
     t_kern, t_plain = time_pair(lambda: strip_topk_blocks(*op, **skw),
                                 lambda: strip_topk_blocks_plain(*op, **skw),
                                 20)
     bstart_np, bcnt_np = bstart.cpu().numpy(), bcnt.cpu().numpy()
     bms, by = bound_ms(*strip_work(bstart_np, bcnt_np, skw["k"],
                                    block_imps.element_size()))
-    row = {"name": name, "rows": int(bstart.shape[0]),
-           "lanes": skw["nblk"] * 128, "k": skw["k"],
-           "block_rows": int(block_docs.shape[0]), "finite": int(fin.sum()),
-           "max_abs_err": float(np.abs(ts[fin] - ps[fin]).max())
-           if fin.any() else 0.0, "ms": t_kern, "plain_ms": t_plain,
-           "bound_ms": bms, "bound_by": by}
-    log(f"strip_topk {name}: [{row['rows']}, {row['lanes']}] over "
-        f"{row['block_rows']} {block_imps.dtype} block rows, k={skw['k']}: "
-        f"bit-identical ({row['finite']} finite, counts equal); kernel "
-        f"{t_kern:.4f} ms, plain {t_plain:.4f} ms, bound {bms:.4f} ms "
-        f"({by}) on {card_line()}")
+    row.update(ms=t_kern, plain_ms=t_plain, bound_ms=bms, bound_by=by)
+    log(f"strip_topk {name}: {shape}; kernel {t_kern:.4f} ms, plain "
+        f"{t_plain:.4f} ms, bound {bms:.4f} ms ({by}) on {card_line()}")
     return row
 
 
@@ -3467,6 +3495,286 @@ def run_surfaces(counts):
     return launches
 
 
+# the repo's own tools on the card (phase j): the knob-matrix fuzz's first
+# eight seeds of the campaign, in full; the fuzz's knobs never reach the
+# single-query term split (its strip cap and certificate ratio are not
+# knobs), so one more seed of the campaign runs with both opened in the
+# environment, which puts the all-lanes pass in the loop
+FUZZ_SEEDS = tuple(range(12345, 12353))
+LANES_SEED = 12377
+LANES_ENV = {"SEARCHLITE_SPLIT_UB_RATIO": "0",
+             "SEARCHLITE_SINGLE_SPARSE_BLOCKS": "16"}
+SCALE_DOCS = 200_000  # bench_scale's corpus at a reduced depth (5M: the tool)
+STRATEGY_DOCS, STRATEGY_QUERIES, STRATEGY_VOCAB = 20_000, 100, 50_000
+
+
+def add_launches(total: dict, launches: dict) -> None:
+    for key, n in launches.items():
+        total[key] = total.get(key, 0) + n
+
+
+class FirstLaunches:
+    """Records the operands of the first card launch of each kind that a
+    tool's run makes, to hold it against the plain version after the run
+    (:meth:`check`). A kind is the kernel, its impact (or M) type, k < 10
+    or not, and whether the launch served one shard of a mesh (a call of
+    ``parallel/query.py``); for the fused kernel also whether a filter
+    applies. The wrappers' CUDA paths are wrapped, so every caller is
+    seen. The per-launch operands are copied; the strip's block tables,
+    which no launch writes, are kept by reference. A kind is recorded
+    once a phase."""
+
+    def __init__(self):
+        from searchlite_tpu_torch.ops import fused_topk, strip_topk
+        from searchlite_tpu_torch.parallel import query
+
+        self.kernels = [(strip_topk, "_strip_topk_blocks_cuda", "strip_topk"),
+                        (strip_topk, "_strip_lanes_blocks_cuda",
+                         "strip_lanes"),
+                        (fused_topk, "_fused_topk_cuda", "fused_topk")]
+        self.shard_calls = [(query, "sparse_candidate_scorer_packed"),
+                            (query, "fused_topk")]
+        self.seen = set()
+        self.pending = []
+        self.saved = []
+        self.in_shard = 0
+        self.active = True
+
+    def __enter__(self):
+        for module, attr, kernel in self.kernels:
+            real = getattr(module, attr)
+            self.saved.append((module, attr, real))
+            setattr(module, attr, self._record(kernel, real))
+        for module, attr in self.shard_calls:
+            real = getattr(module, attr)
+            self.saved.append((module, attr, real))
+            setattr(module, attr, self._shard(real))
+        return self
+
+    def __exit__(self, *exc):
+        for module, attr, real in reversed(self.saved):
+            setattr(module, attr, real)
+        self.saved = []
+
+    def _shard(self, real):
+        def call(*args, **kw):
+            self.in_shard += 1
+            try:
+                return real(*args, **kw)
+            finally:
+                self.in_shard -= 1
+
+        return call
+
+    def _kind(self, kernel: str, args, kw) -> str:
+        import torch
+
+        if kernel == "fused_topk":
+            bf16 = torch.bfloat16 in (args[1].dtype, getattr(
+                kw.get("m2"), "dtype", None))
+            kind = f"fused_topk {'bf16' if bf16 else 'f32'}"
+            if kw.get("filter_rows") is not None:
+                kind += " filtered"
+        else:
+            bf16 = args[1].dtype == torch.bfloat16
+            kind = f"{kernel} {'bf16' if bf16 else 'f32'}"
+        if kw.get("k", 10) < 10:
+            kind += " k<10"
+        return kind + (" mesh shard" if self.in_shard else "")
+
+    def _record(self, kernel: str, real):
+        import torch
+
+        def copy(x):
+            return x.clone() if isinstance(x, torch.Tensor) else x
+
+        def call(*args, **kw):
+            kind = self._kind(kernel, args, kw)
+            if self.active and kind not in self.seen:
+                self.seen.add(kind)
+                keep = 2 if kernel != "fused_topk" else 0  # block tables
+                self.pending.append((kind, args[:keep] + tuple(
+                    copy(a) for a in args[keep:]),
+                    {n: copy(v) for n, v in kw.items()}))
+            return real(*args, **kw)
+
+        return call
+
+    def check(self, what: str) -> list:
+        """Every recorded launch against its plain version on the same
+        operands: the strip kernel and its all-lanes pass bit-identical,
+        the fused kernel to the f32_strict tolerance (summation order).
+        Returns the rows (each with its ``kind``); raises on any
+        disagreement. The checks' own launches are not recorded."""
+        rows = []
+        self.active = False
+        try:
+            for kind, args, kw in self.pending:
+                name = f"{what}, first {kind} launch"
+                if kind.startswith("strip_topk"):
+                    row = check_strip_blocks_call(name, args, kw,
+                                                  timed=False)
+                elif kind.startswith("strip_lanes"):
+                    _ks, kc = check_lanes_call(name, args, kw)
+                    row = {"name": name, "max_abs_err": 0.0}
+                    log(f"{name}: [{args[2].shape[0]}, {kw['nblk'] * 128}] "
+                        f"{int(kc.sum())} kept (doc, score) pairs "
+                        "bit-identical, counts equal")
+                else:
+                    kw = {n: v for n, v in kw.items() if v is not None}
+                    k = kw.pop("k")
+                    row = check_fused_call(name, *args, k, kw, timed=False)
+                row["kind"] = kind
+                rows.append(row)
+        finally:
+            self.pending = []
+            self.active = True
+        return rows
+
+
+def checked_kinds(rows, launches: dict, want=()) -> None:
+    """Raises unless every kernel variant with launches in ``launches``
+    (f32 and bf16 apart) and every kind fragment in ``want`` has a
+    checked row."""
+    kinds = [r["kind"] for r in rows]
+    for variant, n in launches.items():
+        kernel, bf16 = variant.removesuffix("_bf16"), variant.endswith(
+            "_bf16")
+        prefix = f"{kernel} {'bf16' if bf16 else 'f32'}"
+        if n and not any(k.startswith(prefix) for k in kinds):
+            raise AssertionError(f"{variant} launched {n} times and no "
+                                 f"launch of it was checked: {kinds}")
+    for part in want:
+        if not any(part in k for k in kinds):
+            raise AssertionError(f"no {part!r} launch was checked: {kinds}")
+
+
+def run_fuzz(counts, device: str = "cuda"):
+    """j1: ``fuzz_matrix.run_iteration`` on the card for FUZZ_SEEDS (and
+    LANES_SEED under LANES_ENV), every check of each iteration against
+    the f64 oracle. Across them the strip kernel, its all-lanes pass and
+    the fused kernel must launch; a bf16 variant only in an iteration
+    that drew ``SEARCHLITE_PRECISION=bf16``; a plain version only while
+    a reader with a segment on the CPU served (the host tier's size rule
+    under the drawn ``SEARCHLITE_HOST_TIER=force``). The first launch of
+    each kind (:class:`FirstLaunches`) is held against the plain version
+    after its iteration. Returns (launches, checked rows)."""
+    from searchlite_tpu_torch.tools import fuzz_matrix
+
+    keys = list(fuzz_matrix.KNOB_SPACE) + list(LANES_ENV) + [
+        "SEARCHLITE_HOST_TIER_DOCS", "SEARCHLITE_DEVICE_AGGS"]
+    total: dict = {}
+    rows: list = []
+    runs = [(seed, {}) for seed in FUZZ_SEEDS] + [(LANES_SEED, LANES_ENV)]
+    with env_set(**{key: None for key in keys}), FirstLaunches() as firsts:
+        for it, (seed, env) in enumerate(runs):
+            stats: dict = {}
+            counts.reset()
+            t0 = time.perf_counter()
+            with env_set(**env):
+                err = fuzz_matrix.run_iteration(it, seed, device, stats)
+            if err:
+                raise AssertionError(f"fuzz seed {seed} ({env}):\n{err}")
+            counts.bf16 = stats["knobs"].get("SEARCHLITE_PRECISION") == "bf16"
+            launches, _plain = counts.read()
+            counts.bf16 = False
+            log(f"fuzz seed {seed}{' ' + str(env) if env else ''}: ok in "
+                f"{time.perf_counter() - t0:.1f} s; knobs "
+                f"{stats['knobs']}; placements {stats['placements']}; "
+                f"kernels {json.dumps(stats['counts'])}")
+            for placement in stats["placements"]:
+                if placement["plain"] and not placement.get("cpu"):
+                    raise AssertionError(
+                        f"fuzz seed {seed}: {placement['plain']} plain "
+                        "call(s) while a reader with every segment on the "
+                        f"card served: {stats['placements']}")
+            add_launches(total, launches)
+            rows += firsts.check(f"fuzz seed {seed}")
+    for pair in (("strip_topk", "strip_topk_bf16"),
+                 ("strip_lanes", "strip_lanes_bf16"),
+                 ("fused_topk", "fused_topk_bf16")):
+        if not sum(total.get(k, 0) for k in pair):
+            raise AssertionError(f"the fuzz launched no {pair[0]}: {total}")
+    checked_kinds(rows, total, want=("k<10", "mesh shard"))
+    log(f"fuzz: {len(runs)} seeds passed; launches {total}; the first "
+        f"launch of {len(rows)} kinds held against the plain version")
+    return total, rows
+
+
+def run_scale(counts, device: str = "cuda"):
+    """j2: ``bench_scale``'s generator, queries and phases at SCALE_DOCS
+    docs with the C++ engine's gate (bm25 and bmw streams, the b4096
+    arrays row, singles, aggregations and the field sort, each
+    aggregation request equal under SEARCHLITE_DEVICE_AGGS 1 and 0), at
+    the default precision; then the first launch of each kind against
+    the plain version. Returns (launches, checked rows)."""
+    from searchlite_tpu_torch.tools import bench_scale
+
+    counts.reset()
+    with env_set(SEARCHLITE_PRECISION=None), FirstLaunches() as firsts:
+        summary = bench_scale.run([str(SCALE_DOCS), "--cpu-engine",
+                                   "--device", device])
+        launches, plain = counts.read()
+        rows = firsts.check(f"scale at {SCALE_DOCS} docs")
+    log(f"scale at {SCALE_DOCS} docs: bm25 {summary['qps_bm25']} QPS, bmw "
+        f"{summary['qps_bmw']} QPS, b4096 {summary['qps_bm25_arrays_b4096']}"
+        f" QPS, C++ engine bm25 {summary['cpu_engine_qps_bm25']} QPS on "
+        f"{card_line()} (information, not a benchmark); launches "
+        f"{launches}, plain calls {plain}")
+    if summary["gate"] is not True:
+        raise AssertionError("bench_scale's gate is false")
+    if plain or not launches["strip_topk"]:
+        raise AssertionError("bench_scale did not run on the kernels alone")
+    checked_kinds(rows, launches)
+    return launches, rows
+
+
+def run_strategy_micro(counts, device: str = "cuda"):
+    """j3: ``strategy_compare`` (wand and bmw return bm25's top-k, in
+    order, scores to D10) and ``micro`` with SEARCHLITE_HOST_TIER_DOCS=0
+    (every scenario on the card), each with the first launch of each
+    kind against the plain version. Returns (launches, checked rows)."""
+    from searchlite_tpu_torch.tools import micro, strategy_compare
+
+    total: dict = {}
+    rows: list = []
+    counts.reset()
+    with env_set(SEARCHLITE_PRECISION=None,
+                 SEARCHLITE_PRUNE_MIN_POSTINGS="1"), \
+            FirstLaunches() as firsts:
+        reader, queries = strategy_compare.build(
+            STRATEGY_DOCS, STRATEGY_QUERIES, STRATEGY_VOCAB, device)
+        out = strategy_compare.compare(reader, queries)
+        launches, plain = counts.read()
+        rows += firsts.check("strategy compare")
+    log(f"strategy compare, {STRATEGY_DOCS} docs, {STRATEGY_QUERIES} "
+        f"queries, vocab {STRATEGY_VOCAB}: {json.dumps(out)}; launches "
+        f"{launches}, plain calls {plain}")
+    if not out["identical"]:
+        raise AssertionError(f"strategy invariant: {out['mismatches']}")
+    if plain or reader.tier_segments["host"]:
+        raise AssertionError("strategy compare left the card")
+    checked_kinds(rows, launches)
+    add_launches(total, launches)
+    counts.reset()
+    with env_set(SEARCHLITE_PRECISION=None, SEARCHLITE_HOST_TIER_DOCS="0",
+                 SEARCHLITE_PRUNE_MIN_POSTINGS=None), \
+            FirstLaunches() as firsts:
+        lines = list(micro.run_all(device))
+        launches, plain = counts.read()
+        micro_rows = firsts.check("micro")
+    for line in lines:
+        log(f"micro {json.dumps(line)}")
+    if len(lines) != 11 or any(line.get("tier") != "card" or "error" in line
+                               for line in lines):
+        raise AssertionError("a micro scenario failed or left the card")
+    if plain:
+        raise AssertionError("micro ran a plain version")
+    checked_kinds(micro_rows, launches)
+    add_launches(total, launches)
+    return total, rows + micro_rows
+
+
 def main() -> int:
     import torch
 
@@ -3572,13 +3880,25 @@ def main() -> int:
     del reader
     surface_launches = run_surfaces(counts)
     shutil.rmtree(INDEX_DIR, ignore_errors=True)
+    tool_launches = {}
+    tool_rows = []
+    for launches_j, rows_j in (run_fuzz(counts), run_scale(counts),
+                               run_strategy_micro(counts)):
+        add_launches(tool_launches, launches_j)
+        tool_rows += rows_j
+    fused_rows += [r for r in tool_rows
+                   if r["kind"].startswith("fused_topk f32")]
+    bf16_fused_rows += [r for r in tool_rows
+                        if r["kind"].startswith("fused_topk bf16")]
+    log(f"phase j: the first launch of {len(tool_rows)} kinds held against "
+        "the plain version")
     search_launches = {k: single_launches[k] + struct_launches[k]
                        + sparse_launches[k] + pruned_launches[k]
                        + chunked_launches[k] + wand_launches[k]
                        + sharded_launches[k] + agg_launches[k]
                        + vector_launches[k] + mesh_launches[k]
                        + live_launches[k] + surface_launches[k]
-                       + bf16_launches[k]
+                       + bf16_launches[k] + tool_launches.get(k, 0)
                        for k in F32_KERNELS}
     for blocked in ("jax", "searchlite_tpu"):
         if sys.modules.get(blocked) is not None:
@@ -3636,7 +3956,8 @@ def main() -> int:
         "route": "cuda",
         "source": "searchlite_tpu_torch/csrc/strip_topk.cu",
         "replaces": "searchlite_tpu/ops/pallas_strip.py:157",
-        "launches": bf16_launches["strip_topk_bf16"],
+        "launches": bf16_launches["strip_topk_bf16"]
+        + tool_launches.get("strip_topk_bf16", 0),
         "max_abs_err": max(r["max_abs_err"]
                            for r in stream_rows_bf16 + bf16_strip_rows),
         "ms": sum(r["ms"] for r in stream_rows_bf16),
@@ -3651,7 +3972,8 @@ def main() -> int:
         "route": "cuda",
         "source": "searchlite_tpu_torch/csrc/strip_topk.cu",
         "replaces": "searchlite_tpu/ops/pallas_strip.py:157",
-        "launches": bf16_launches["strip_lanes_bf16"],
+        "launches": bf16_launches["strip_lanes_bf16"]
+        + tool_launches.get("strip_lanes_bf16", 0),
         "max_abs_err": 0.0,
         "ms": lanes_rows_bf16[-1]["ms"],
         "plain_ms": lanes_rows_bf16[-1]["plain_ms"],
@@ -3663,7 +3985,8 @@ def main() -> int:
         "route": "cuda",
         "source": "searchlite_tpu_torch/csrc/fused_topk.cu",
         "replaces": "searchlite_tpu/ops/pallas_topk.py:32",
-        "launches": bf16_launches["fused_topk_bf16"],
+        "launches": bf16_launches["fused_topk_bf16"]
+        + tool_launches.get("fused_topk_bf16", 0),
         "max_abs_err": max(r["max_abs_err"]
                            for r in fused_rows_bf16 + bf16_fused_rows),
         # the filtered b256 shape, M1 (the dense rows) in bf16

@@ -207,7 +207,7 @@ def run(docs: int, device: str, repeat: int = 8,
 
 
 def main() -> int:
-    import torch
+    from searchlite_tpu_torch.tools._common import require_device
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--docs", type=int, default=100_000)
@@ -218,10 +218,7 @@ def main() -> int:
                     choices=["f32_strict", "bf16"],
                     help="SEARCHLITE_PRECISION of the run and its gate")
     args = ap.parse_args()
-    if args.device == "cuda" and not torch.cuda.is_available():
-        print("FAILED: torch.cuda.is_available() is False")
-        return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
+    require_device(args.device)
     try:
         result = run(args.docs, args.device, args.repeat, args.precision)
     finally:  # the on-disk index chip_smoke.build_index wrote

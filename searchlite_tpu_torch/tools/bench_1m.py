@@ -88,7 +88,7 @@ def run(docs: int, device: str, mesh_spec=None) -> dict:
     os.environ["SEARCHLITE_PRECISION"] = "f32_strict"
     card = None
     if on_card:
-        from chip_smoke import card_line
+        from searchlite_tpu_torch.tools._common import card_line
 
         card = card_line()
         log(card)
@@ -214,7 +214,7 @@ def run(docs: int, device: str, mesh_spec=None) -> dict:
 
 
 def main(argv=None) -> int:
-    import torch
+    from searchlite_tpu_torch.tools._common import require_device
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--docs", type=int, default=1_000_000)
@@ -223,10 +223,7 @@ def main(argv=None) -> int:
                     help="also run the stream and singles over a mesh of "
                          "this many shards")
     args = ap.parse_args(argv)
-    if args.device == "cuda" and not torch.cuda.is_available():
-        print("FAILED: torch.cuda.is_available() is False")
-        return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
+    require_device(args.device)
     result = run(args.docs, args.device, args.mesh)
     line = json.dumps(result)
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)

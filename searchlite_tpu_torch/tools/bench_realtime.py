@@ -240,12 +240,9 @@ def main() -> int:
     args = ap.parse_args()
     if REPO not in sys.path:
         sys.path.insert(0, REPO)
-    import torch
+    from searchlite_tpu_torch.tools._common import require_device
 
-    if args.device.startswith("cuda") and not torch.cuda.is_available():
-        print("FAILED: torch.cuda.is_available() is False",
-              file=sys.stderr)
-        return 2
+    require_device(args.device)
     summary = run(args.seconds, args.batch, args.base, args.upsert,
                   not args.no_auto_merge, args.device)
     line = json.dumps(summary)

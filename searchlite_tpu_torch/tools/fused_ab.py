@@ -316,16 +316,13 @@ def profile_batches(results: list) -> None:
 
 
 def main() -> int:
-    import torch
+    from searchlite_tpu_torch.tools._common import require_device
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--other", required=True)
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("FAILED: torch.cuda.is_available() is False")
-        return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
+    require_device("cuda")
     card = _smoke().card_line()
     print(card, flush=True)
     t0 = time.perf_counter()

@@ -262,7 +262,7 @@ def measure_stream(reader, stream, execution: str, calls: int = 3,
 
 
 def main() -> int:
-    import torch
+    from searchlite_tpu_torch.tools._common import require_device
 
     chip_smoke = _smoke()
     import bench
@@ -284,10 +284,7 @@ def main() -> int:
                     help="the singles and the stream without and with a "
                          "mesh of this many shards, in turns")
     args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("FAILED: torch.cuda.is_available() is False")
-        return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
+    require_device("cuda")
     bench.N_DOCS = args.docs
     card = chip_smoke.card_line()
     print(card, flush=True)

@@ -250,7 +250,7 @@ def soak(seconds: float, device: str, mesh=None) -> dict:
 
 
 def main(argv=None) -> int:
-    import torch
+    from searchlite_tpu_torch.tools._common import require_device
 
     ap = argparse.ArgumentParser()
     ap.add_argument("seconds", nargs="?", type=float, default=120.0)
@@ -258,14 +258,10 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh", default=None,
                     help="run the server doc-sharded over this many shards")
     args = ap.parse_args(argv)
-    if args.device == "cuda" and not torch.cuda.is_available():
-        print("FAILED: torch.cuda.is_available() is False")
-        return 2
+    require_device(args.device)
     card = None
     if args.device == "cuda":
-        if REPO not in sys.path:
-            sys.path.insert(0, REPO)
-        from chip_smoke import card_line
+        from searchlite_tpu_torch.tools._common import card_line
 
         card = card_line()
     summary = soak(args.seconds, args.device, args.mesh)
